@@ -2,14 +2,22 @@
 """Drive the PyTorch port (horizonnet_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py                  # every phase, as a release check
-    python3 chip_smoke.py --phases kernel  # a subset, while iterating
+    python3 chip_smoke.py --phases kernel train train_cli   # a subset
 
 Phases; any failed check makes the script exit non-zero:
-  kernel    build K1 (csrc/bilstm_fwd.cu) from the checkout and hold it
-            against its plain PyTorch twin: f32 at a small shape (abs tol
-            1e-5) and bf16 at the serving shape T=256, D=2, B=64, H=512
-            (abs tol 1e-2, the bf16 output rounding); times it beside the
-            twin and beside cuDNN's nn.LSTM on the same weights.
+  kernel    build K1 (csrc/bilstm_fwd.cu) and the training pair K2/K3
+            (csrc/bilstm_train.cu) from the checkout, one nvcc each, in
+            parallel, and hold each against its plain PyTorch twin: f32 at
+            a small shape (tol 1e-5) and bf16 at the main path's shape (K1
+            at serving T=256, D=2, B=64, H=512; K2/K3 at training B=8),
+            tol 1e-2 relative to the largest entry (the bf16 output
+            rounding: a one-ulp flip is 2^-7 of the value); the
+            autograd.Function's gradients against torch.autograd through
+            the plain loop (f32, training shape, 1e-4 relative: a 256-step
+            chain summed in another order). Times each kernel beside its
+            twin, its bound (from the shapes) and cuDNN's nn.LSTM on the
+            same weights (K1: layer forward; K2: forward in training; K3:
+            backward).
   golden    the committed resnet18_rnn_synth.ckpt on val_room through
             InferenceEngine(postproc="cuboid") in f32 with TF32 off:
             corners within 2 px and z1 within 0.2 of golden_outputs.npz;
@@ -20,13 +28,27 @@ Phases; any failed check makes the script exit non-zero:
             device-resident panos/s.
   cli       python -m horizonnet_tpu_torch.cli.inference on the golden,
             JSON within 2 px of golden_outputs.npz.
+  train     resnet50_rnn at 512x1024, bf16 compute with f32 parameters,
+            batch 8, Adam at lr 1e-4 on the warmup-poly schedule,
+            lstm_impl kernel_train: synthetic rooms (seed 0) written as a
+            PNG dataset, one batch through the uint8-wire augmentation on
+            the card, then warm-up and 20 timed steps of TrainEngine on
+            that batch. Checks: every loss finite, K2 and K3 launched, the
+            loss after the steps below the first step's. Prints train
+            panos/s, ms per step, peak memory, per-stage times and the
+            profiler's top kernels.
+  train_cli python -m horizonnet_tpu_torch.cli.train on 2 synthetic
+            512x1024 PNG panos (resnet18, batch 2, 2 epochs, --save_every
+            1, --lstm_impl pallas_train): both epoch checkpoints load back
+            and differ.
 
 Before the last line it prints the card's name and power limit, and one
-JSON line {"kernels": [...]} with each kernel's launches on the main path
-(the flagship run), its error against the twin and its time beside the
-twin's. The last line is {"ok": true, "device": {...}}. Without a CUDA
-device, or outside a checkout of the repository, it exits non-zero and
-prints no result.
+JSON line {"kernels": [...]} with each kernel's launches on its main path
+(K1: the flagship run; K2, K3: the train run), its error against the
+twin, its time beside the twin's, its bound and the library call's time.
+The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
+outside a checkout of the repository, it exits non-zero and prints no
+result.
 """
 
 import argparse
@@ -40,7 +62,11 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, "tests", "fixtures", "golden")
-PHASES = ("kernel", "golden", "flagship", "cli")
+PHASES = ("kernel", "golden", "flagship", "cli", "train", "train_cli")
+# H100 SXM peaks (the on-chip-measurement guide's table): f32 outside the
+# tensor cores, and HBM3
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
 
 
 def log(msg):
@@ -73,6 +99,33 @@ def card_line():
     if out.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def bound(flops, nbytes):
+    """(least ms for the work, "operations" or "bytes")."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def rel_err(got, want):
+    """max |got - want| over max(1, max |want|), and max |got - want|."""
+    want = want.float()
+    d = (got.float() - want).abs().max()
+    return (d / want.abs().max().clamp(min=1.0)).item(), d.item()
+
+
+def lstm_bytes_flops(T, D, B, H, elt, residuals=False, backward=False):
+    """Bytes (each input read once, each output written once) and FLOPs
+    (the recurrent products) of one K1/K2/K3 call."""
+    G = 4 * H
+    w = D * H * G * elt
+    if backward:   # gates, cs, dy in; dxw out; T-1 products (none at T-1)
+        return (2 * T * D * B * G + 2 * T * D * B * H) * elt + w, \
+            2.0 * (T - 1) * D * B * H * G
+    out = T * D * B * H * elt + (T * D * B * (G + H) * elt if residuals
+                                 else 0)
+    return T * D * B * G * elt + w + out, 2.0 * T * D * B * H * G
 
 
 class SmokeFailure(Exception):
@@ -149,8 +202,128 @@ def phase_kernel(state):
     log(f"bi-LSTM layer bf16 [T={T},B={B},I={I},H={H}]: port (matmul + K1) "
         f"{ms_layer:.3f} ms; comparator cuDNN nn.LSTM {ms_cudnn:.3f} ms; "
         f"max|port - cuDNN| = {diff:.3e} [{state['card']}]")
+    nbytes, flops = lstm_bytes_flops(T, D, B, H, 2)
+    bms, by = bound(flops, nbytes)
+    log(f"K1 bound at the serving shape: {bms:.3f} ms ({by}: "
+        f"{flops / 1e9:.1f} GFLOP at 67 TFLOP/s f32, {nbytes / 1e6:.1f} MB "
+        f"at 3.35 TB/s); K1 at {100 * bms / ms_k:.1f} % of it")
     state["kernels"]["bilstm_fwd"].update(
-        max_abs_err=max(err32, errbf), ms=ms_k, plain_ms=ms_p)
+        max_abs_err=max(err32, errbf), ms=ms_k, plain_ms=ms_p, bound_ms=bms,
+        bound_by=by, library_ms=ms_cudnn)
+    phase_kernel_train(state, g)
+
+
+def phase_kernel_train(state, g):
+    import torch
+    from horizonnet_tpu_torch.ops import cuda_lstm, cuda_lstm_train as clt
+    from horizonnet_tpu_torch.ops.lstm import bidir_layer
+
+    dev = torch.device("cuda")
+
+    def inputs(T, D, B, H, dtype):
+        xw = torch.randn(T, D, B, 4 * H, generator=g)
+        w = (torch.rand(D, H, 4 * H, generator=g) * 2 - 1) * H ** -0.5
+        dys = torch.randn(T, D, B, H, generator=g)
+        return [t.to(dev, dtype) for t in (xw, w, dys)]
+
+    err2 = err3 = 0.0
+    for (T, D, B, H), dtype, tol in (((16, 2, 3, 32), torch.float32, 1e-5),
+                                     ((256, 2, 8, 512), torch.bfloat16,
+                                      1e-2)):
+        xw, w, dys = inputs(T, D, B, H, dtype)
+        fwd_k = clt.train_fwd_cuda(xw, w)
+        fwd_p = clt.train_fwd_plain(xw, w)
+        e2 = [rel_err(a, b) for a, b in zip(fwd_k, fwd_p)]
+        ys, gates, cs = fwd_p
+        dxw_k = clt.train_bwd_cuda(gates, cs, dys, w)
+        dxw_p = clt.train_bwd_plain(gates, cs, dys, w)
+        e3 = [rel_err(dxw_k, dxw_p),
+              rel_err(clt.weight_grad(ys, dxw_k, w),
+                      clt.weight_grad(ys, dxw_p, w))]
+        torch.cuda.synchronize()
+        name = str(dtype).split(".")[-1]
+        log(f"K2 {name} [T={T},D={D},B={B},H={H}] (ys, gates, cs) "
+            f"relative {[f'{r:.2e}' for r, _ in e2]}, abs "
+            f"{[f'{a:.2e}' for _, a in e2]}; K3 (dxw, dW) relative "
+            f"{[f'{r:.2e}' for r, _ in e3]}, abs {[f'{a:.2e}' for _, a in e3]}"
+            f" (tol {tol:g} relative)")
+        check(all(r <= tol for r, _ in e2), f"K2 {name} error {e2} > {tol}")
+        check(all(r <= tol for r, _ in e3), f"K3 {name} error {e3} > {tol}")
+        err2 = max(err2, *(a for _, a in e2))
+        err3 = max(err3, *(a for _, a in e3))
+
+    # the autograd.Function against torch.autograd through the plain loop
+    xw, w, dys = inputs(256, 2, 8, 512, torch.float32)
+    grads = []
+    for fn in (clt.bilstm_recurrence_trainable,
+               cuda_lstm.bilstm_recurrence_plain):
+        a, b = xw.clone().requires_grad_(), w.clone().requires_grad_()
+        (fn(a, b) * dys).sum().backward()
+        grads.append((a.grad, b.grad))
+    eg = [rel_err(x, y) for x, y in zip(*grads)]
+    log(f"autograd.Function f32 [T=256,D=2,B=8,H=512] grads (xw, w_hh_t) vs "
+        f"autograd through the plain loop: relative "
+        f"{[f'{r:.2e}' for r, _ in eg]} (tol 1e-4)")
+    check(all(r <= 1e-4 for r, _ in eg), f"Function grads off: {eg}")
+
+    T, D, B, H, I = 256, 2, 8, 512, 1024
+    xw, w, dys = inputs(T, D, B, H, torch.bfloat16)
+    ys, gates, cs = clt.train_fwd_cuda(xw, w)
+    ms2 = cuda_ms(lambda: clt.train_fwd_cuda(xw, w))
+    ms2p = cuda_ms(lambda: clt.train_fwd_plain(xw, w), reps=3)
+    ms3 = cuda_ms(lambda: clt.train_bwd_cuda(gates, cs, dys, w))
+    ms3p = cuda_ms(lambda: clt.train_bwd_plain(gates, cs, dys, w), reps=3)
+
+    # cuDNN's nn.LSTM on one bidirectional layer at the training shape,
+    # bf16, the same weights: the comparator for K2 (forward with grad),
+    # K3 (backward alone) and the port's layer (projection + K2 + K3 + dW)
+    x = torch.randn(T, B, I, generator=g).to(dev, torch.bfloat16)
+    k = H ** -0.5
+    p = {"w_ih": ((torch.rand(D, 4 * H, I, generator=g) * 2 - 1) * k),
+         "w_hh": ((torch.rand(D, 4 * H, H, generator=g) * 2 - 1) * k),
+         "b": ((torch.rand(D, 4 * H, generator=g) * 2 - 1) * k)}
+    p = {n: v.to(dev).requires_grad_() for n, v in p.items()}
+    ref = torch.nn.LSTM(I, H, num_layers=1, bidirectional=True).to(dev)
+    with torch.no_grad():
+        for d, sfx in enumerate(("", "_reverse")):
+            getattr(ref, "weight_ih_l0" + sfx).copy_(p["w_ih"][d])
+            getattr(ref, "weight_hh_l0" + sfx).copy_(p["w_hh"][d])
+            getattr(ref, "bias_ih_l0" + sfx).copy_(p["b"][d])
+            getattr(ref, "bias_hh_l0" + sfx).zero_()
+    ref = ref.to(torch.bfloat16)
+    xg = x.clone().requires_grad_()
+    dy = torch.randn(T, B, 2 * H, generator=g).to(dev, torch.bfloat16)
+    y_ref = ref(xg)[0]
+    y_port = bidir_layer(xg, p, "kernel_train")
+    diff = (y_port.float() - y_ref.float()).abs().max().item()
+    ref_params = list(ref.parameters())
+    ms_cudnn_f = cuda_ms(lambda: ref(xg))
+    ms_cudnn_b = cuda_ms(lambda: torch.autograd.grad(
+        y_ref, [xg, *ref_params], dy, retain_graph=True))
+    ms_cudnn_fb = cuda_ms(lambda: torch.autograd.grad(
+        ref(xg)[0], [xg, *ref_params], dy))
+    ms_port_fb = cuda_ms(lambda: torch.autograd.grad(
+        bidir_layer(xg, p, "kernel_train"), [xg, *p.values()], dy))
+    card = state["card"]
+    log(f"K2 bf16 [T={T},D={D},B={B},H={H}]: kernel {ms2:.3f} ms, plain twin "
+        f"{ms2p:.3f} ms; K3: kernel {ms3:.3f} ms, plain twin {ms3p:.3f} ms "
+        f"(CUDA events, median) [{card}]")
+    log(f"bi-LSTM layer bf16 [T={T},B={B},I={I},H={H}] forward + backward: "
+        f"port (projection + K2 + K3 + dW, f32 master weights) "
+        f"{ms_port_fb:.3f} ms; cuDNN nn.LSTM {ms_cudnn_fb:.3f} ms (forward "
+        f"{ms_cudnn_f:.3f}, backward {ms_cudnn_b:.3f}); max|port - cuDNN| "
+        f"forward {diff:.3e} [{card}]")
+    for name, ms, mp, lib, err, bwd in (
+            ("bilstm_train_fwd", ms2, ms2p, ms_cudnn_f, err2, False),
+            ("bilstm_bwd", ms3, ms3p, ms_cudnn_b, err3, True)):
+        nbytes, flops = lstm_bytes_flops(T, D, B, H, 2, residuals=True,
+                                         backward=bwd)
+        bms, by = bound(flops, nbytes)
+        log(f"{name} bound: {bms:.3f} ms ({by}: {flops / 1e9:.2f} GFLOP, "
+            f"{nbytes / 1e6:.1f} MB); kernel at {100 * bms / ms:.1f} % of it")
+        state["kernels"][name].update(max_abs_err=err, ms=ms, plain_ms=mp,
+                                      bound_ms=bms, bound_by=by,
+                                      library_ms=lib)
 
 
 def _golden_inputs():
@@ -269,6 +442,192 @@ def phase_flagship(state):
         f"K1 launches {launches} [{state['card']}]")
 
 
+def _write_rooms(root, n, H=512, W=1024):
+    """n synthetic rooms (seed i) as a PNG dataset under ``root``."""
+    import numpy as np
+    from horizonnet_tpu_torch.data.synth import synth_room
+    from horizonnet_tpu_torch.utils.image import write_png
+
+    os.makedirs(os.path.join(root, "img"))
+    os.makedirs(os.path.join(root, "label_cor"))
+    for i in range(n):
+        img, cor = synth_room(np.random.default_rng(i), H, W)
+        write_png(os.path.join(root, "img", f"room{i}.png"), img)
+        np.savetxt(os.path.join(root, "label_cor", f"room{i}.txt"), cor,
+                   fmt="%.4f")
+
+
+def phase_train(state):
+    import numpy as np
+    import torch
+    from horizonnet_tpu_torch.data.augment import augment_images
+    from horizonnet_tpu_torch.data.dataset import (PanoCorBonDataset,
+                                                   make_training_batch)
+    from horizonnet_tpu_torch.models import build_model
+    from horizonnet_tpu_torch.ops import cuda_lstm_train as clt
+    from horizonnet_tpu_torch.train.engine import TrainEngine
+    from horizonnet_tpu_torch.train.schedule import warmup_poly_schedule
+    from horizonnet_tpu_torch.train.step import (create_train_state,
+                                                 loss_terms, make_optimizer)
+
+    B, H, W, n_warm, n_steps, reps = 8, 512, 1024, 3, 5, 4
+    dev = torch.device("cuda")
+    card = state["card"]
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as root:
+        _write_rooms(root, B)
+        ds = PanoCorBonDataset(root, flip=True, rotate=True, gamma=True,
+                               stretch=True)
+        t0 = time.perf_counter()
+        x, y_bon, y_cor = make_training_batch(ds, list(range(B)),
+                                              np.random.default_rng(0),
+                                              device=dev)
+        torch.cuda.synchronize()
+        t_batch = time.perf_counter() - t0
+        raw = torch.from_numpy(np.stack([ds.load_raw(i)[0]
+                                         for i in range(B)])).to(dev)
+    args = [torch.full((B,), v, device=dev) for v in (1.3, 1.2)] + [
+        torch.ones(B, dtype=torch.bool, device=dev),
+        torch.arange(B, device=dev) * 100, torch.full((B,), 0.8, device=dev)]
+    ms_aug = cuda_ms(lambda: augment_images(raw, *args))
+    check(x.shape == (B, H, W, 3) and bool(torch.isfinite(x).all()),
+          f"augmented batch {tuple(x.shape)} not finite")
+    log(f"train batch: {B} PNGs read, labelled and augmented on the card in "
+        f"{t_batch:.2f} s (first call); augmentation alone {ms_aug:.3f} ms "
+        f"(uint8 wire, CUDA events) [{card}]")
+
+    model = build_model("resnet50", True, device=dev, dtype=torch.bfloat16,
+                        lstm_impl="kernel_train", param_dtype=torch.float32,
+                        seed=0)
+    st = create_train_state(model, make_optimizer(
+        "Adam", warmup_poly_schedule(1e-4, 1000)))
+    eng = TrainEngine(model, st, B, H, W, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(n_warm):
+        losses.append(eng.step(x, y_bon, y_cor, gen)["total"])
+    torch.cuda.synchronize()
+    log(f"train warm-up ({n_warm} steps): {time.perf_counter() - t0:.1f} s")
+
+    clt.fwd_launches = clt.bwd_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    rates, step_ms = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            losses.append(eng.step(x, y_bon, y_cor, gen)["total"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rates.append(n_steps * B / dt)
+        step_ms.append(dt / n_steps * 1e3)
+    k2, k3 = clt.fwd_launches, clt.bwd_launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [v.item() for v in losses]
+    check(all(np.isfinite(losses)), f"train losses not finite: {losses}")
+    check(k2 > 0 and k3 > 0, f"K2/K3 not launched on the train path: "
+          f"{k2}, {k3}")
+    first, last = losses[0], float(np.mean(losses[-3:]))
+    check(last < first, f"loss on the repeated batch did not fall: "
+          f"{first} -> {last}")
+    state["kernels"]["bilstm_train_fwd"]["launches"] = k2
+    state["kernels"]["bilstm_bwd"]["launches"] = k3
+    log(f"train resnet50_rnn bf16 (f32 params) B={B} {H}x{W} kernel_train: "
+        f"{statistics.median(rates):.2f} panos/s (median of {reps} runs of "
+        f"{n_steps} steps; runs {[round(v, 2) for v in rates]}), "
+        f"{statistics.median(step_ms):.2f} ms/step, peak memory {peak:.2f} "
+        f"GiB, K2 launches {k2}, K3 launches {k3}; loss {first:.4f} -> "
+        f"{last:.4f} over {len(losses)} steps on one batch [{card}]")
+
+    # where the time goes: CUDA events around the parts of one step
+    xs = x.permute(0, 3, 1, 2)
+    yb = torch.from_numpy(y_bon).to(dev)
+    yc = torch.from_numpy(y_cor).to(dev)
+
+    def staged():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        for q in model.parameters():
+            q.grad = None
+        ev[0].record()
+        bon, cor = model(xs, gen)
+        b, c = loss_terms(bon, cor, yb, yc)
+        ev[1].record()
+        (b + c).backward()
+        ev[2].record()
+        st.opt.step()
+        ev[3].record()
+        ev[3].synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+
+    parts = [staged() for _ in range(5)]
+    med = [statistics.median(col) for col in zip(*parts)]
+    log(f"train step stages (CUDA events, median of 5): forward + loss "
+        f"{med[0]:.2f} ms, backward {med[1]:.2f} ms, optimizer "
+        f"{med[2]:.2f} ms [{card}]")
+
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(3):
+                eng.step(x, y_bon, y_cor, gen)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / 3
+    except RuntimeError as e:
+        log(f"profiler: not measured ({e})")
+        return
+    from torch.autograd import DeviceType
+
+    # kernels only (CPU operators carry their kernels' time too)
+    rows = [(e.self_device_time_total / 1e3 / 3, e.key)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(reverse=True)
+    busy = sum(t for t, _ in rows)
+    log(f"profiler, per step: device busy {busy:.2f} ms of {wall:.2f} ms "
+        f"wall (idle share {100 * (1 - busy / wall):.1f} %); top kernels:")
+    for t, key in rows[:12]:
+        log(f"  {t:8.3f} ms  {100 * t / busy:5.1f} %  {key[:90]}")
+
+
+def phase_train_cli(state):
+    import torch
+    from horizonnet_tpu_torch.train.checkpoint import load_trained_model
+
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as root:
+        _write_rooms(os.path.join(root, "train"), 2)
+        cmd = [sys.executable, "-m", "horizonnet_tpu_torch.cli.train",
+               "--id", "smoke", "--ckpt", os.path.join(root, "ckpt"),
+               "--logs", os.path.join(root, "logs"),
+               "--train_root_dir", os.path.join(root, "train"),
+               "--valid_root_dir", "", "--backbone", "resnet18",
+               "--batch_size_train", "2", "--epochs", "2",
+               "--save_every", "1", "--lstm_impl", "pallas_train",
+               "--device", "cuda"]
+        env = dict(os.environ, PYTHONPATH=REPO)
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
+                              text=True, timeout=600)
+        check(proc.returncode == 0,
+              f"train CLI failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        sds = []
+        for e in (1, 2):
+            path = os.path.join(root, "ckpt", "smoke", f"epoch_{e}.ckpt")
+            check(os.path.isfile(path), f"train CLI wrote no {path}")
+            model, sd = load_trained_model(path, device="cuda")
+            check(all(bool(torch.isfinite(v.float()).all())
+                      for v in sd.values()), f"epoch {e} weights not finite")
+            sds.append(sd)
+    moved = sum(not torch.equal(sds[0][k], sds[1][k]) for k in sds[0])
+    log(f"train_cli: resnet18, 2 epochs in {time.perf_counter() - t0:.1f} s; "
+        f"epoch_1.ckpt and epoch_2.ckpt load back, {moved} of {len(sds[0])} "
+        "tensors differ")
+    check(moved > 0, "the two epoch checkpoints are equal")
+
+
 def phase_cli(state):
     import numpy as np
 
@@ -310,24 +669,35 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from horizonnet_tpu_torch.ops import cuda_lstm
+    from concurrent.futures import ThreadPoolExecutor
 
-    state = {"card": card_line(), "kernels": {"bilstm_fwd": {
-        "name": "bilstm_fwd", "route": "cuda",
-        "source": "horizonnet_tpu_torch/csrc/bilstm_fwd.cu",
-        "replaces": "horizonnet_tpu/ops/pallas_lstm.py:31",
-        "launches": None, "max_abs_err": None, "ms": None,
-        "plain_ms": None}}}
+    from horizonnet_tpu_torch.ops import cuda_lstm, cuda_lstm_train
+
+    def record(name, source, line):
+        return {"name": name, "route": "cuda",
+                "source": f"horizonnet_tpu_torch/csrc/{source}",
+                "replaces": f"horizonnet_tpu/ops/pallas_lstm.py:{line}",
+                "launches": None, "max_abs_err": None, "ms": None,
+                "plain_ms": None, "bound_ms": None, "bound_by": None,
+                "library_ms": None}
+
+    state = {"card": card_line(), "kernels": {
+        "bilstm_fwd": record("bilstm_fwd", "bilstm_fwd.cu", 31),
+        "bilstm_train_fwd": record("bilstm_train_fwd", "bilstm_train.cu", 56),
+        "bilstm_bwd": record("bilstm_bwd", "bilstm_train.cu", 87)}}
     log(state["card"])
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    cuda_lstm.build()
-    log(f"K1 build (nvcc, or the cached library): "
+    with ThreadPoolExecutor(2) as pool:
+        for f in [pool.submit(m.build) for m in (cuda_lstm, cuda_lstm_train)]:
+            f.result()
+    log(f"K1 and K2/K3 builds (nvcc in parallel, or the cached libraries): "
         f"{time.perf_counter() - t0:.1f} s")
 
     phases = {"kernel": phase_kernel, "golden": phase_golden,
-              "flagship": phase_flagship, "cli": phase_cli}
+              "flagship": phase_flagship, "cli": phase_cli,
+              "train": phase_train, "train_cli": phase_train_cli}
     for name in args.phases:
         t0 = time.perf_counter()
         log(f"== phase {name}")

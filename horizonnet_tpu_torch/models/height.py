@@ -11,20 +11,20 @@ give the reference's keys (``ghc_lst.{i}.layer.{j}.layers.{0,1}``).
 import torch
 import torch.nn as nn
 
-from .layers import conv2d
+from .layers import BatchNorm2d, conv2d
 from ..ops.resize import wrap_resize_width
 
 
 class ConvCompressH(nn.Module):
     """Conv k3 stride (2,1) + BN + ReLU: halves height, keeps width."""
 
-    def __init__(self, in_c, out_c, ks=3):
+    def __init__(self, in_c, out_c, ks=3, bn_momentum=0.1):
         super().__init__()
         if ks % 2 != 1:
             raise ValueError(f"kernel size {ks} must be odd")
         self.layers = nn.Sequential(
             conv2d(in_c, out_c, ks, (2, 1), ks // 2, bias=True),
-            nn.BatchNorm2d(out_c), nn.ReLU(inplace=True))
+            BatchNorm2d(out_c, momentum=bn_momentum), nn.ReLU(inplace=True))
 
     def forward(self, x):
         return self.layers(x)
@@ -33,11 +33,14 @@ class ConvCompressH(nn.Module):
 class GlobalHeightConv(nn.Module):
     """4x height halving, then the seam-free width resize to out_w."""
 
-    def __init__(self, in_c, out_c):
+    def __init__(self, in_c, out_c, bn_momentum=0.1):
         super().__init__()
+        m = bn_momentum
         self.layer = nn.Sequential(
-            ConvCompressH(in_c, in_c // 2), ConvCompressH(in_c // 2, in_c // 2),
-            ConvCompressH(in_c // 2, in_c // 4), ConvCompressH(in_c // 4, out_c))
+            ConvCompressH(in_c, in_c // 2, bn_momentum=m),
+            ConvCompressH(in_c // 2, in_c // 2, bn_momentum=m),
+            ConvCompressH(in_c // 2, in_c // 4, bn_momentum=m),
+            ConvCompressH(in_c // 4, out_c, bn_momentum=m))
 
     def forward(self, x, out_w):
         return wrap_resize_width(self.layer(x), out_w)   # [B, C, H', out_w]
@@ -46,10 +49,11 @@ class GlobalHeightConv(nn.Module):
 class GlobalHeightStage(nn.Module):
     """Fuse the 4 encoder scales into one [B, c_last, out_w] feature."""
 
-    def __init__(self, channels, out_scale=8):
+    def __init__(self, channels, out_scale=8, bn_momentum=0.1):
         super().__init__()
         self.ghc_lst = nn.ModuleList(
-            [GlobalHeightConv(c, c // out_scale) for c in channels])
+            [GlobalHeightConv(c, c // out_scale, bn_momentum)
+             for c in channels])
 
     def forward(self, feats, out_w):
         if len(feats) != len(self.ghc_lst):

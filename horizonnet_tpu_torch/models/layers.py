@@ -5,12 +5,61 @@ width-padded Conv2d in ``Sequential(LR_PAD, conv)`` (model.py:27-55), which
 puts a ``.1`` into those parameters' state_dict keys; WrapConv keeps that
 layout, so a reference state_dict loads with ``load_state_dict``. Max
 pooling keeps torch's -inf edge padding (the reference does not wrap it).
+
+Convolutions and linears run in the dtype of their input: a parameter of
+another dtype is cast per call, so a training model keeps float32
+parameters and computes in bfloat16 as the JAX package's flax modules do
+(``dtype`` bf16, ``param_dtype`` f32); a serving model's bf16 weights
+need no cast.
 """
 
+import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.pad import wrap_pad_width
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d computing in its input's dtype."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class Linear(nn.Linear):
+    """nn.Linear computing in its input's dtype."""
+
+    def forward(self, x):
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """nn.BatchNorm2d whose train-mode running variance takes the biased
+    batch variance, as flax's nn.BatchNorm in the JAX package does
+    (``ra_var`` from ``_compute_stats``), where torch takes the unbiased
+    one. Normalization uses the biased variance in both. Eval mode is
+    nn.BatchNorm2d's. ``momentum`` has torch's meaning: new = (1 - m) old
+    + m batch.
+    """
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        # the batch kernel writes the batch mean and unbiased variance into
+        # zeroed scratch at momentum 1; the running update is done here
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.zeros_like(self.running_var)
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
+                         self.eps)
+        n = x.numel() // x.shape[1]
+        m = self.momentum
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m * (n - 1) / n)
+            self.num_batches_tracked.add_(1)
+        return y
 
 
 class WrapPad(nn.Module):
@@ -35,7 +84,7 @@ class WrapConv(nn.Sequential):
     def __init__(self, cin, cout, kernel_size, stride=1, padding=(0, 0),
                  bias=False, groups=1):
         ph, pw = padding
-        super().__init__(WrapPad(pw), nn.Conv2d(
+        super().__init__(WrapPad(pw), Conv2d(
             cin, cout, kernel_size, stride, padding=(ph, 0), bias=bias,
             groups=groups))
 
@@ -45,8 +94,8 @@ def conv2d(cin, cout, kernel_size, stride=1, padding=0, bias=False,
     """WrapConv when the width is padded, else a plain nn.Conv2d (the
     reference wraps only width-padded convs)."""
     if padding == 0:
-        return nn.Conv2d(cin, cout, kernel_size, stride, bias=bias,
-                         groups=groups)
+        return Conv2d(cin, cout, kernel_size, stride, bias=bias,
+                      groups=groups)
     return WrapConv(cin, cout, kernel_size, stride, (padding, padding), bias,
                     groups)
 

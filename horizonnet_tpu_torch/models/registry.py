@@ -18,13 +18,16 @@ ENCODER_DENSENET = [
 
 
 def build_model(backbone="resnet50", use_rnn=True, *, device,
-                dtype=torch.float32, lstm_impl="kernel",
-                seed=0) -> HorizonNet:
-    """A HorizonNet on ``device`` in eval mode, random from ``seed``."""
+                dtype=torch.float32, lstm_impl="kernel", seed=0,
+                param_dtype=None, bn_momentum=0.1) -> HorizonNet:
+    """A HorizonNet on ``device`` in eval mode, random from ``seed``.
+    A training model passes ``param_dtype=torch.float32`` (f32 weights,
+    ``dtype`` compute)."""
     if backbone in ENCODER_DENSENET:
         raise NotImplementedError(
             f"{backbone}: the densenet encoders are ROADMAP Queue 1 item 7")
     if backbone not in ENCODER_RESNET:
         raise ValueError(f"unknown backbone {backbone!r}")
     return HorizonNet(backbone, use_rnn, device=device, dtype=dtype,
-                      lstm_impl=lstm_impl, seed=seed)
+                      lstm_impl=lstm_impl, seed=seed,
+                      param_dtype=param_dtype, bn_momentum=bn_momentum)

@@ -4,32 +4,33 @@ Counterpart of horizonnet_tpu/models/resnet.py: resnet18/34/50/101/152,
 resnext50_32x4d, resnext101_32x8d (reference model.py:18-21), torchvision
 v1.5 layout (stride on the 3x3 conv of bottlenecks). Attribute names give
 torchvision's state_dict keys. Forward returns the 4 feature maps at
-strides 4/8/16/32 (model.py:71-82).
+strides 4/8/16/32 (model.py:71-82). ``bn_momentum`` is every batch norm's
+running-stat momentum (torch's meaning, the CLI's --bn_momentum).
 """
 
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import conv2d, max_pool_same_as_torch
+from .layers import BatchNorm2d, Conv2d, conv2d, max_pool_same_as_torch
 
 
-def _downsample(cin, cout, stride):
-    return nn.Sequential(nn.Conv2d(cin, cout, 1, stride, bias=False),
-                         nn.BatchNorm2d(cout))
+def _downsample(cin, cout, stride, bn_momentum):
+    return nn.Sequential(Conv2d(cin, cout, 1, stride, bias=False),
+                         BatchNorm2d(cout, momentum=bn_momentum))
 
 
 class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, cin, planes, stride=1, downsample=False, groups=1,
-                 base_width=64):
+                 base_width=64, bn_momentum=0.1):
         super().__init__()
         self.conv1 = conv2d(cin, planes, 3, stride, 1)
-        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn1 = BatchNorm2d(planes, momentum=bn_momentum)
         self.conv2 = conv2d(planes, planes, 3, 1, 1)
-        self.bn2 = nn.BatchNorm2d(planes)
-        self.downsample = (_downsample(cin, planes, stride) if downsample
-                           else None)
+        self.bn2 = BatchNorm2d(planes, momentum=bn_momentum)
+        self.downsample = (_downsample(cin, planes, stride, bn_momentum)
+                           if downsample else None)
 
     def forward(self, x):
         identity = x if self.downsample is None else self.downsample(x)
@@ -42,17 +43,17 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, cin, planes, stride=1, downsample=False, groups=1,
-                 base_width=64):
+                 base_width=64, bn_momentum=0.1):
         super().__init__()
         width = int(planes * (base_width / 64.0)) * groups
         self.conv1 = conv2d(cin, width, 1)
-        self.bn1 = nn.BatchNorm2d(width)
+        self.bn1 = BatchNorm2d(width, momentum=bn_momentum)
         self.conv2 = conv2d(width, width, 3, stride, 1, groups=groups)
-        self.bn2 = nn.BatchNorm2d(width)
+        self.bn2 = BatchNorm2d(width, momentum=bn_momentum)
         self.conv3 = conv2d(width, planes * 4, 1)
-        self.bn3 = nn.BatchNorm2d(planes * 4)
-        self.downsample = (_downsample(cin, planes * 4, stride) if downsample
-                           else None)
+        self.bn3 = BatchNorm2d(planes * 4, momentum=bn_momentum)
+        self.downsample = (_downsample(cin, planes * 4, stride, bn_momentum)
+                           if downsample else None)
 
     def forward(self, x):
         identity = x if self.downsample is None else self.downsample(x)
@@ -77,11 +78,11 @@ RESNET_SPECS = {
 class ResNetEncoder(nn.Module):
     """Returns 4 feature maps at strides 4/8/16/32. x: [B, 3, H, W]."""
 
-    def __init__(self, backbone="resnet50"):
+    def __init__(self, backbone="resnet50", bn_momentum=0.1):
         super().__init__()
         block, layers, groups, base_width = RESNET_SPECS[backbone]
         self.conv1 = conv2d(3, 64, 7, 2, 3)
-        self.bn1 = nn.BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64, momentum=bn_momentum)
         cin, planes = 64, 64
         for li, n_blocks in enumerate(layers):
             stride = 1 if li == 0 else 2
@@ -93,7 +94,7 @@ class ResNetEncoder(nn.Module):
                 else:
                     need_ds = bi == 0 and s != 1
                 blocks.append(block(cin, planes, s, need_ds, groups,
-                                    base_width))
+                                    base_width, bn_momentum))
                 cin = planes * block.expansion
             setattr(self, f"layer{li + 1}", nn.Sequential(*blocks))
             planes *= 2

@@ -1,12 +1,14 @@
-"""The JAX package's variables -> the port's (the reference's) state_dict.
+"""The JAX package's variables <-> the port's (the reference's) state_dict.
 
-Exact inverse of horizonnet_tpu/models/torch_convert.py::
-torch_state_to_variables (resnet family): conv HWIO -> OIHW, with the
-``.1`` infix on width-padded (k > 1) convs; dense kernel [in, out] ->
-weight [out, in]; BN scale/bias/mean/var -> weight/bias/running_mean/
-running_var (num_batches_tracked 0); LSTM ``l{k}_w_ih/w_hh/b`` [D, ...] ->
-``weight_ih_l{k}[_reverse]`` etc. with bias_ih = b and bias_hh = 0.
-Every leaf of the variables is consumed; an unknown one raises.
+``variables_to_state_dict`` is the exact inverse of horizonnet_tpu/models/
+torch_convert.py::torch_state_to_variables (resnet family): conv HWIO ->
+OIHW, with the ``.1`` infix on width-padded (k > 1) convs; dense kernel
+[in, out] -> weight [out, in]; BN scale/bias/mean/var -> weight/bias/
+running_mean/running_var (num_batches_tracked 0); LSTM ``l{k}_w_ih/w_hh/b``
+[D, ...] -> ``weight_ih_l{k}[_reverse]`` etc. with bias_ih = b and
+bias_hh = 0. Every leaf of the variables is consumed; an unknown one
+raises. ``state_dict_to_variables`` goes back, so the port writes the JAX
+package's ``.ckpt`` trees (train/checkpoint.py).
 """
 
 import numpy as np
@@ -111,3 +113,81 @@ def variables_to_state_dict(variables):
     if params:
         raise KeyError(f"unused parameter groups {sorted(params)}")
     return w.sd
+
+
+def _put(tree, path, leaf):
+    for name in path[:-1]:
+        tree = tree.setdefault(name, {})
+    if path[-1] in tree:
+        raise KeyError(f"{'/'.join(path)} written twice")
+    tree[path[-1]] = leaf
+
+
+def _module_path(parts):
+    """state_dict key parts (without the leaf name) -> (flax module path,
+    "conv" or "bn"); the reverse of _encoder / the height loop above. A
+    width-padded conv's ``.1`` infix is a trailing part, ignored."""
+    if parts[:2] == ["feature_extractor", "encoder"]:
+        p = parts[2:]
+        path = ["encoder"]
+        if p[0].startswith("layer"):
+            path.append(f"{p[0]}_{p[1]}")
+            p = p[2:]
+            if p[0] == "downsample":
+                p = ["downsample_conv" if p[1] == "0" else "downsample_bn"]
+        path.append(p[0])
+        return path, "bn" if "bn" in p[0] else "conv"
+    if parts[:2] == ["reduce_height_module", "ghc_lst"]:
+        # reduce_height_module.ghc_lst.{i}.layer.{j}.layers.{0 conv | 1 bn}
+        i, j, which = parts[2], parts[4], parts[6]
+        kind = "conv" if which == "0" else "bn"
+        return ["height", f"ghc{i}", f"c{j}", kind], kind
+    raise KeyError(".".join(parts))
+
+
+def state_dict_to_variables(state_dict):
+    """The port's state_dict (tensors on any device) -> {'params',
+    'batch_stats'} of horizonnet_tpu as numpy float arrays; the folded
+    LSTM bias is bias_ih + bias_hh. Every key is consumed; an unknown one
+    raises."""
+    params, stats, rnn = {}, {}, {}
+    for key, t in state_dict.items():
+        parts = key.split(".")
+        leaf = parts[-1]
+        if leaf == "num_batches_tracked":
+            continue
+        a = t.detach().float().cpu().numpy()
+        if parts[0] == "bi_rnn":
+            rnn[leaf] = a
+        elif parts[0] == "linear":
+            name = {("linear",): "linear", ("linear", "0"): "linear_0",
+                    ("linear", "3"): "linear_1"}.get(tuple(parts[:-1]))
+            if name is None:
+                raise KeyError(key)
+            _put(params, [name, "kernel" if leaf == "weight" else "bias"],
+                 a.T if leaf == "weight" else a)
+        else:
+            path, kind = _module_path(parts[:-1])
+            if kind == "conv":
+                _put(params, path + ["conv", {"weight": "kernel",
+                                              "bias": "bias"}[leaf]],
+                     a.transpose(2, 3, 1, 0) if leaf == "weight" else a)
+            elif leaf in ("weight", "bias"):
+                _put(params, path + ["bn", "scale" if leaf == "weight"
+                                     else "bias"], a)
+            else:
+                _put(stats, path + ["bn", {"running_mean": "mean",
+                                           "running_var": "var"}[leaf]], a)
+    if rnn:
+        layers = len([k for k in rnn if k.startswith("weight_ih_l")
+                      and not k.endswith("_reverse")])
+        for layer in range(layers):
+            get = lambda n: np.stack([  # noqa: E731
+                rnn.pop(f"{n}_l{layer}{sfx}") for sfx in ("", "_reverse")])
+            params.setdefault("bi_rnn", {}).update({
+                f"l{layer}_w_ih": get("weight_ih"),
+                f"l{layer}_w_hh": get("weight_hh"),
+                f"l{layer}_b": get("bias_ih") + get("bias_hh")})
+        if rnn:
+            raise KeyError(f"bi_rnn: unused keys {sorted(rnn)}")
+    return {"params": params, "batch_stats": stats}

@@ -27,7 +27,8 @@ _SMEM_LIMIT = 232448  # bytes of dynamic shared memory a Hopper CTA may use
 
 
 def bilstm_recurrence_plain(xw, w_hh_t):
-    """Plain PyTorch twin of the kernel: a Python loop over T, f32 cell."""
+    """Plain PyTorch twin of the kernel: a Python loop over T, f32 cell.
+    Differentiable by autograd (the "plain" training path)."""
     T, D, B, G = xw.shape
     H = G // 4
     if w_hh_t.shape != (D, H, G):
@@ -35,14 +36,14 @@ def bilstm_recurrence_plain(xw, w_hh_t):
     w = w_hh_t.float()
     h = torch.zeros(D, B, H, dtype=torch.float32, device=xw.device)
     c = torch.zeros_like(h)
-    ys = torch.empty(T, D, B, H, dtype=xw.dtype, device=xw.device)
+    ys = []
     for t in range(T):
         gates = xw[t].float() + torch.bmm(h, w)
         i, f, g, o = gates.split(H, dim=-1)
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h = torch.sigmoid(o) * torch.tanh(c)
-        ys[t] = h.to(xw.dtype)
-    return ys
+        ys.append(h)
+    return torch.stack(ys).to(xw.dtype)
 
 
 def _library():

@@ -1,1 +1,1 @@
-"""Checkpoint IO of the port (training itself is ROADMAP Queue 1 item 8)."""
+"""Training of the port: step, schedule, engine and checkpoint IO."""

@@ -1,18 +1,29 @@
-"""Read the JAX package's ``.ckpt`` files without jax, flax or msgpack.
+"""The JAX package's ``.ckpt`` files, read and written without jax, flax
+or msgpack.
 
 Format (horizonnet_tpu/train/checkpoint.py:28-52): an 8-byte magic, a
 little-endian u64 header length, a JSON header ({"kind", "kwargs":
 {backbone, use_rnn}, ...}), then flax's msgpack payload {"params",
 "batch_stats"[, ...]} whose arrays are msgpack ext type 1 holding
-msgpack (shape, dtype name, C-order bytes). The decoder below covers the
-msgpack types flax writes. float16 storage (the committed golden) is
-upcast to float32, as load_trained_model does there (:79-83).
+msgpack (shape, dtype name, C-order bytes). The decoder and the encoder
+below cover the msgpack types flax writes. float16 storage (the committed
+golden) is upcast to float32, as load_trained_model does there (:79-83).
+
+``save_model`` writes the inference checkpoint and ``save_checkpoint``
+the training one, whose ``opt_state`` is optax's ``to_state_dict`` of the
+optimizer that train/step.py::make_optimizer mirrors, so the JAX
+package's ``load_trained_model`` and ``load_checkpoint`` read both; the
+port's ``load_checkpoint`` restores a training state from either package's
+file.
 """
 
 import json
+import os
+import shutil
 import struct
 
 import numpy as np
+import torch
 
 _MAGIC = b"HZTPU1\x00\x00"
 _EXT_NDARRAY = 1
@@ -109,6 +120,108 @@ def msgpack_restore(blob):
     return out
 
 
+class _Writer:
+    """Minimal msgpack encoder for flax's payload trees: dict (str keys),
+    list, str, bytes, bool, None, int, float and numpy arrays / scalars
+    as flax's ext types."""
+
+    def __init__(self):
+        self.out = bytearray()
+
+    def head(self, n, fix, fix_max, codes):
+        if n <= fix_max and fix is not None:
+            self.out.append(fix | n)
+            return
+        for code, fmt in codes:
+            if n < 1 << (8 * struct.calcsize(fmt)):
+                self.out += bytes([code]) + struct.pack(fmt, n)
+                return
+        raise ValueError(f"msgpack length {n} too large")
+
+    def value(self, v):
+        if v is None or isinstance(v, bool):
+            self.out.append({None: 0xc0, False: 0xc2, True: 0xc3}[v])
+        elif isinstance(v, (np.ndarray, np.generic)):
+            code = _EXT_NDARRAY if isinstance(v, np.ndarray) else _EXT_NPSCALAR
+            v = np.asarray(v)
+            inner = _Writer()
+            inner.value([list(v.shape), v.dtype.name, v.tobytes("C")])
+            self.ext(code, bytes(inner.out))
+        elif isinstance(v, int):
+            self.int(v)
+        elif isinstance(v, float):
+            self.out += b"\xcb" + struct.pack(">d", v)
+        elif isinstance(v, str):
+            b = v.encode()
+            self.head(len(b), 0xa0, 31, [(0xd9, ">B"), (0xda, ">H"),
+                                         (0xdb, ">I")])
+            self.out += b
+        elif isinstance(v, bytes):
+            self.head(len(v), None, 0, [(0xc4, ">B"), (0xc5, ">H"),
+                                        (0xc6, ">I")])
+            self.out += v
+        elif isinstance(v, (list, tuple)):
+            self.head(len(v), 0x90, 15, [(0xdc, ">H"), (0xdd, ">I")])
+            for x in v:
+                self.value(x)
+        elif isinstance(v, dict):
+            self.head(len(v), 0x80, 15, [(0xde, ">H"), (0xdf, ">I")])
+            if not all(isinstance(k, str) for k in v):
+                raise TypeError(f"msgpack map keys {list(v)} are not all str")
+            for k in sorted(v):   # flax flattens the tree: sorted keys
+                self.value(k)
+                self.value(v[k])
+        else:
+            raise TypeError(f"cannot msgpack {type(v).__name__}")
+
+    def int(self, v):
+        if 0 <= v <= 0x7f or -32 <= v < 0:
+            self.out += struct.pack(">b" if v < 0 else ">B", v)
+            return
+        fmts = ([(0xcc, ">B"), (0xcd, ">H"), (0xce, ">I"), (0xcf, ">Q")]
+                if v >= 0 else
+                [(0xd0, ">b"), (0xd1, ">h"), (0xd2, ">i"), (0xd3, ">q")])
+        for code, fmt in fmts:
+            try:
+                self.out += bytes([code]) + struct.pack(fmt, v)
+                return
+            except struct.error:
+                continue
+        raise ValueError(f"integer {v} out of msgpack's range")
+
+    def ext(self, code, data):
+        fixext = {1: 0xd4, 2: 0xd5, 4: 0xd6, 8: 0xd7, 16: 0xd8}
+        if len(data) in fixext:
+            self.out.append(fixext[len(data)])
+        else:
+            self.head(len(data), None, 0, [(0xc7, ">B"), (0xc8, ">H"),
+                                           (0xc9, ">I")])
+        self.out += struct.pack(">b", code) + data
+
+
+def msgpack_serialize(tree):
+    """Encode a tree of dicts, lists and numpy arrays to the bytes flax's
+    msgpack_serialize gives (for arrays under 2 GiB, which flax would
+    chunk)."""
+    w = _Writer()
+    w.value(tree)
+    return bytes(w.out)
+
+
+def write_checkpoint(path, header, payload):
+    """Magic, header, msgpack payload; written to ``path`` + ".tmp" and
+    renamed, as the JAX package does."""
+    head = json.dumps(header).encode()
+    blob = msgpack_serialize(payload)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(_MAGIC)
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        f.write(blob)
+    os.replace(tmp, path)
+
+
 def read_checkpoint(path):
     """-> (header dict, payload tree of numpy arrays)."""
     with open(path, "rb") as f:
@@ -126,10 +239,12 @@ def _upcast(tree):
     return tree.astype(np.float32) if tree.dtype == np.float16 else tree
 
 
-def load_trained_model(path, *, device, dtype=None, lstm_impl="kernel"):
+def load_trained_model(path, *, device, dtype=None, lstm_impl="kernel",
+                       **build_kw):
     """Returns (model, state_dict): the model built on ``device`` with the
-    checkpoint's weights loaded, and the state_dict (CPU tensors)."""
-    import torch
+    checkpoint's weights loaded, and the state_dict (CPU tensors).
+    ``build_kw`` go to models.build_model (a training model's
+    ``param_dtype``, ``bn_momentum``)."""
 
     from ..models.registry import build_model
     from ..models.torch_convert import variables_to_state_dict
@@ -145,6 +260,95 @@ def load_trained_model(path, *, device, dtype=None, lstm_impl="kernel"):
         {"params": _upcast(payload["params"]),
          "batch_stats": _upcast(payload.get("batch_stats", {}))})
     model = build_model(kw["backbone"], kw["use_rnn"], device=device,
-                        dtype=dtype or torch.float32, lstm_impl=lstm_impl)
+                        dtype=dtype or torch.float32, lstm_impl=lstm_impl,
+                        **build_kw)
     model.load_state_dict(sd)
     return model, sd
+
+
+def save_model(path, state_dict, backbone, use_rnn, args=None):
+    """Inference checkpoint of a state_dict (horizonnet_tpu/train/
+    checkpoint.py:55-62)."""
+    from ..models.torch_convert import state_dict_to_variables
+
+    write_checkpoint(path, {"kind": "model", "kwargs": {
+        "backbone": backbone, "use_rnn": use_rnn}, "args": args or {}},
+        state_dict_to_variables(state_dict))
+
+
+def _moments_tree(moments, state_dict):
+    """{parameter name: tensor} -> the flax params tree; parameters
+    without an entry (frozen ones) get zeros."""
+    from ..models.torch_convert import state_dict_to_variables
+
+    sd = {k: moments.get(k, torch.zeros_like(v, device="cpu"))
+          for k, v in state_dict.items()}
+    return state_dict_to_variables(sd)["params"]
+
+
+def _opt_state_tree(host, state_dict):
+    """optax's to_state_dict layout of make_optimizer's chain:
+    [chain(add_decayed_weights, ] adam|sgd [), masked(set_to_zero)]."""
+    spec = host["spec"]
+    count = np.asarray(host["step"], np.int32)
+    trees = {k: _moments_tree(m, state_dict)
+             for k, m in host["moments"].items()}
+    core = ({"count": count, "mu": trees["mu"], "nu": trees["nu"]}
+            if spec.optim == "Adam" else {"trace": trees["trace"]})
+    tx = {"0": core, "1": {"count": count} if spec.schedule else {}}
+    if spec.weight_decay:
+        tx = {"0": {}, "1": tx}
+    if spec.freeze_mask is not None:
+        tx = {"0": tx, "1": {"inner_state": {}}}
+    return tx
+
+
+def save_checkpoint(ckpt_dir, host, backbone, use_rnn, epoch,
+                    best_valid_score, is_best, args=None):
+    """Training checkpoint ``ckpt_dir/checkpoint.ckpt`` and, if
+    ``is_best``, its copy ``best_model_{epoch}.ckpt``
+    (horizonnet_tpu/train/checkpoint.py:90-105). ``host`` is
+    TrainEngine.host_state() or TrainState.host()."""
+    from ..models.torch_convert import state_dict_to_variables
+
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, "checkpoint.ckpt")
+    sd = host["state_dict"]
+    payload = state_dict_to_variables(sd)
+    payload["opt_state"] = _opt_state_tree(host, sd)
+    payload["step"] = np.asarray(host["step"], np.int32)
+    write_checkpoint(path, {"kind": "train", "kwargs": {
+        "backbone": backbone, "use_rnn": use_rnn}, "epoch": epoch,
+        "best_valid_score": float(best_valid_score), "args": args or {}},
+        payload)
+    if is_best:
+        shutil.copyfile(path, os.path.join(ckpt_dir,
+                                           f"best_model_{epoch}.ckpt"))
+    return path
+
+
+def load_checkpoint(path, state):
+    """Restore a TrainState (train/step.py) in place from a training
+    checkpoint of either package: weights, batch statistics, the
+    optimizer's moments and its count. Returns (state, header)."""
+    from ..models.torch_convert import variables_to_state_dict
+
+    header, payload = read_checkpoint(path)
+    stats = _upcast(payload["batch_stats"])
+    state.model.load_state_dict(variables_to_state_dict(
+        {"params": _upcast(payload["params"]), "batch_stats": stats}))
+    opt = state.opt
+    tx = payload["opt_state"]
+    if opt.spec.freeze_mask is not None:
+        tx = tx["0"]
+    if opt.spec.weight_decay:
+        tx = tx["1"]
+    core = tx["0"]
+    with torch.no_grad():
+        for k, moments in opt.moments.items():
+            sd = variables_to_state_dict({"params": core[k],
+                                          "batch_stats": stats})
+            for n, t in moments.items():
+                t.copy_(sd[n])
+    opt.count = int(payload["step"])
+    return state, header

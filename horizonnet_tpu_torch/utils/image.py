@@ -1,9 +1,10 @@
-"""Pano loading for the CLI: a numpy PNG decoder, Pillow for the rest.
+"""Pano IO: a numpy PNG decoder and encoder, Pillow for the rest.
 
-PNG files decode here with zlib and numpy alone, so the serving CLI runs
-on hosts without Pillow; other formats, and panos that need resizing to
-the 1024x512 input contract, go through Pillow (imported on that path
-only), as the JAX CLI does (horizonnet_tpu/cli/inference.py:124-130).
+PNG files decode here with zlib and numpy alone, so the CLIs run on hosts
+without Pillow; other formats, and panos that need resizing to the
+1024x512 input contract, go through Pillow (imported on that path only),
+as the JAX CLI does (horizonnet_tpu/cli/inference.py:124-130).
+``write_png`` writes the 8-bit RGB PNGs of synthetic datasets.
 """
 
 import struct
@@ -80,6 +81,25 @@ def read_png(path):
         img[y] = row
         prior = img[y]
     return img.reshape(H, W, bpp)
+
+
+def write_png(path, img):
+    """uint8 [H, W, 3] -> an 8-bit RGB PNG (filter 0 on every row)."""
+    img = np.ascontiguousarray(img, np.uint8)
+    H, W, C = img.shape
+    if C != 3:
+        raise ValueError(f"write_png takes [H, W, 3] uint8, got {img.shape}")
+    raw = np.concatenate([np.zeros((H, 1), np.uint8), img.reshape(H, -1)],
+                         axis=1).tobytes()
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(_PNG_SIG + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 2,
+                                                      0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
 
 
 def load_pano(path, size=(1024, 512)):

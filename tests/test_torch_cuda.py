@@ -50,3 +50,83 @@ def test_bilstm_kernel_rejects_what_it_cannot_run(cuda):
     with pytest.raises(TypeError, match="float32 or both bfloat16"):
         cuda_lstm.bilstm_recurrence_cuda(xw.half(), torch.zeros(
             2, 12, 48, device=cuda).half())
+
+
+def _train_inputs(cuda, T, D, B, H, dtype, seed):
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.from_numpy(a.astype(np.float32)).to(  # noqa: E731
+        cuda, getattr(torch, dtype))
+    xw = f(rng.normal(0, 1, (T, D, B, 4 * H)))
+    w = f(rng.uniform(-1, 1, (D, H, 4 * H)) / np.sqrt(H))
+    dys = f(rng.normal(0, 1, (T, D, B, H)))
+    return xw, w, dys
+
+
+def _rel_err(got, want):
+    want = want.float()
+    return ((got.float() - want).abs().max()
+            / want.abs().max().clamp(min=1.0)).item()
+
+
+# K2: as K1 (f32 1e-5; bf16 outputs round to bf16: 1e-2). K3: dxw and dW
+# of order 1-10 here, so the bar is relative to the largest entry: f32
+# sums in another order (1e-5), bf16 dxw rounds to bf16 (1e-2). B=3 and
+# B=70 are not multiples of K2's 64-row or K3's 8-row batch tile.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 1e-2)])
+@pytest.mark.parametrize("T,D,B,H", [(8, 2, 3, 32), (16, 1, 70, 64)])
+def test_train_kernels_match_twins(cuda, dtype, tol, T, D, B, H):
+    from horizonnet_tpu_torch.ops import cuda_lstm_train as clt
+
+    xw, w, dys = _train_inputs(cuda, T, D, B, H, dtype, B)
+    before = (clt.fwd_launches, clt.bwd_launches)
+    got = clt.train_fwd(xw, w)
+    torch.cuda.synchronize()
+    want = clt.train_fwd_plain(xw, w)
+    for g, r in zip(got, want):
+        assert g.dtype == r.dtype and g.shape == r.shape
+        assert _rel_err(g, r) <= tol
+    ys, gates, cs = want
+    dxw = clt.train_bwd(gates, cs, dys, w)
+    torch.cuda.synchronize()
+    assert (clt.fwd_launches, clt.bwd_launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    dxw_p = clt.train_bwd_plain(gates, cs, dys, w)
+    assert dxw.dtype == dxw_p.dtype and dxw.shape == (T, D, B, 4 * H)
+    assert _rel_err(dxw, dxw_p) <= tol
+    assert _rel_err(clt.weight_grad(ys, dxw, w),
+                    clt.weight_grad(ys, dxw_p, w)) <= tol
+
+
+@pytest.mark.cuda
+def test_train_function_grads_match_plain_autograd(cuda):
+    """f32: the autograd.Function (K2, K3, dW) against torch.autograd
+    through K1's plain twin, relative 1e-5 as above."""
+    from horizonnet_tpu_torch.ops import cuda_lstm_train as clt
+
+    xw, w, dys = _train_inputs(cuda, 24, 2, 10, 64, "float32", 1)
+    grads = []
+    for fn in (clt.bilstm_recurrence_trainable,
+               cuda_lstm.bilstm_recurrence_plain):
+        a, b = xw.clone().requires_grad_(), w.clone().requires_grad_()
+        (fn(a, b) * dys).sum().backward()
+        grads.append((a.grad, b.grad))
+    torch.cuda.synchronize()
+    for g, r in zip(*grads):
+        assert _rel_err(g, r) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_train_kernels_reject_what_they_cannot_run(cuda):
+    from horizonnet_tpu_torch.ops import cuda_lstm_train as clt
+
+    xw, w, dys = _train_inputs(cuda, 4, 2, 3, 48, "float32", 0)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        clt.train_fwd_cuda(xw, w)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        clt.train_bwd_cuda(xw, dys, dys, w)
+    xw, w, dys = _train_inputs(cuda, 4, 2, 3, 32, "float32", 0)
+    with pytest.raises(TypeError, match="float32 or all bfloat16"):
+        clt.train_fwd_cuda(xw, w.bfloat16())
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        clt.train_bwd_cuda(xw, dys, dys.cpu(), w)
