@@ -63,8 +63,7 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, "tests", "fixtures", "golden")
 PHASES = ("kernel", "golden", "flagship", "cli", "train", "train_cli")
-# H100 SXM peaks (the on-chip-measurement guide's table): f32 outside the
-# tensor cores, and HBM3
+# H100 SXM peaks: f32 outside the tensor cores, and HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
