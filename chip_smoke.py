@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py                  # every phase, as a release check
     python3 chip_smoke.py --phases kernel train train_cli   # a subset
+    python3 chip_smoke.py --phases kernel fused general     # K4, general
 
 Phases; any failed check makes the script exit non-zero:
-  kernel    build K1 (csrc/bilstm_fwd.cu) and the training pair K2/K3
-            (csrc/bilstm_train.cu) from the checkout, one nvcc each, in
+  kernel    build K1 (csrc/bilstm_fwd.cu), the training pair K2/K3
+            (csrc/bilstm_train.cu) and the fused bottleneck K4
+            (csrc/fused_bottleneck.cu) from the checkout, one nvcc each, in
             parallel, and hold each against its plain PyTorch twin: f32 at
             a small shape (tol 1e-5) and bf16 at the main path's shape (K1
             at serving T=256, D=2, B=64, H=512; K2/K3 at training B=8),
@@ -17,7 +19,11 @@ Phases; any failed check makes the script exit non-zero:
             chain summed in another order). Times each kernel beside its
             twin, its bound (from the shapes) and cuDNN's nn.LSTM on the
             same weights (K1: layer forward; K2: forward in training; K3:
-            backward).
+            backward). K4: f32 at tests/test_pallas_block.py's four shapes
+            (2e-5 relative) and bf16 at the four resnet50 stage shapes at
+            B=64 (3e-2 relative, the JAX package's bars), each bf16 shape
+            timed beside the twin, its bound and the port's unfused
+            Bottleneck in eval (cuDNN convs and the ATen tail).
   golden    the committed resnet18_rnn_synth.ckpt on val_room through
             InferenceEngine(postproc="cuboid") in f32 with TF32 off:
             corners within 2 px and z1 within 0.2 of golden_outputs.npz;
@@ -26,8 +32,20 @@ Phases; any failed check makes the script exit non-zero:
             batch 64, dct4 wire of val_room rolled per sample, through
             serve_stream at depth 3: finite [8, 2] corners; serving and
             device-resident panos/s.
+  fused     the flagship with fused_blocks="kernel" (K4 on the 12
+            identity bottlenecks) beside the unfused flagship, same
+            weights, in turns: serving and device panos/s, corner drift
+            on the first batch, K4 launches (12 per forward); then an f32
+            resnet50_rnn at B=1, 512x1024 with randomized batch norm, TF32
+            off: fused and unfused bon/cor within 2e-4.
+  general   the golden through InferenceEngine(postproc="general") in f32
+            (12 corners within 2 px of general_uv, z1 within 0.2), then
+            through the yuv420 wire (within 2 px); then the flagship's
+            width in general mode (resnet50_rnn bf16 B=64 dct4,
+            serve_stream depth 3, finish_general_batch on 4 workers):
+            serving and device panos/s, every result finite.
   cli       python -m horizonnet_tpu_torch.cli.inference on the golden,
-            JSON within 2 px of golden_outputs.npz.
+            cuboid and general, JSON within 2 px of golden_outputs.npz.
   train     resnet50_rnn at 512x1024, bf16 compute with f32 parameters,
             batch 8, Adam at lr 1e-4 on the warmup-poly schedule,
             lstm_impl kernel_train: synthetic rooms (seed 0) written as a
@@ -44,8 +62,10 @@ Phases; any failed check makes the script exit non-zero:
 
 Before the last line it prints the card's name and power limit, and one
 JSON line {"kernels": [...]} with each kernel's launches on its main path
-(K1: the flagship run; K2, K3: the train run), its error against the
-twin, its time beside the twin's, its bound and the library call's time.
+(K1: the flagship run; K2, K3: the train run; K4: the fused run), its
+error against the twin, its time beside the twin's, its bound and the
+library call's time. K4's times and bound are summed over the 12 calls
+of one resnet50 forward (2, 3, 5 and 2 at the four stage shapes).
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no
 result.
@@ -62,10 +82,19 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, "tests", "fixtures", "golden")
-PHASES = ("kernel", "golden", "flagship", "cli", "train", "train_cli")
-# H100 SXM peaks: f32 outside the tensor cores, and HBM3
+PHASES = ("kernel", "golden", "flagship", "fused", "general", "cli", "train",
+          "train_cli")
+# H100 SXM peaks: f32 outside the tensor cores, bf16 dense on the tensor
+# cores, and HBM3
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+FLAGSHIP_B = 64
+# resnet50's identity bottlenecks per stage, and the stage shapes (NHWC) at
+# the flagship's batch of 64 and 512x1024 input
+RESNET50_IDENTITY = (2, 3, 5, 2)
+STAGES = ((64, 128, 256, 256), (64, 64, 128, 512), (64, 32, 64, 1024),
+          (64, 16, 32, 2048))
 
 
 def log(msg):
@@ -100,9 +129,9 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def bound(flops, nbytes):
+def bound(flops, nbytes, peak=PEAK_F32_FLOPS):
     """(least ms for the work, "operations" or "bytes")."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -323,6 +352,106 @@ def phase_kernel_train(state, g):
         state["kernels"][name].update(max_abs_err=err, ms=ms, plain_ms=mp,
                                       bound_ms=bms, bound_by=by,
                                       library_ms=lib)
+    phase_kernel_fused(state, g)
+
+
+def _bottleneck(C, dtype, g):
+    """The port's Bottleneck (C channels, width C/4) on the card in eval,
+    channels_last, with randomized batch norm (a fresh one is the
+    identity and would hide a wrong fold), and K4's folded inputs."""
+    import torch
+    from horizonnet_tpu_torch.models.resnet import Bottleneck
+    from horizonnet_tpu_torch.ops.fused_block import fold_conv_bn
+
+    blk = Bottleneck(C, C // 4)
+    with torch.no_grad():
+        for m in blk.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                m.weight.normal_(0, m.weight[0].numel() ** -0.5, generator=g)
+            elif isinstance(m, torch.nn.BatchNorm2d):
+                n = m.num_features
+                m.weight.uniform_(0.5, 1.5, generator=g)
+                m.bias.normal_(0, 0.5, generator=g)
+                m.running_mean.normal_(0, 0.5, generator=g)
+                m.running_var.uniform_(0.5, 1.5, generator=g)
+    blk = blk.cuda().eval()
+    for m in blk.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            m.to(dtype)
+    blk = blk.to(memory_format=torch.channels_last)
+    folded = []
+    for conv, bn in ((blk.conv1, blk.bn1), (blk.conv2[1], blk.bn2),
+                     (blk.conv3, blk.bn3)):
+        folded += fold_conv_bn(conv.weight.permute(2, 3, 1, 0), bn.weight,
+                               bn.bias, bn.running_mean, bn.running_var,
+                               bn.eps)
+    w1, b1, w2, b2, w3, b3 = folded
+    return blk, (w1[0, 0], b1, w2, b2, w3[0, 0], b3)
+
+
+def phase_kernel_fused(state, g):
+    import torch
+    from horizonnet_tpu_torch.ops import fused_block as fb
+
+    card = state["card"]
+    err = 0.0
+    # f32 at tests/test_pallas_block.py's shapes: 2e-5 relative
+    for B, H, W, C in ((2, 16, 32, 64), (1, 64, 32, 64), (2, 32, 16, 256),
+                       (1, 16, 8, 2048)):
+        _, wts = _bottleneck(C, torch.float32, g)
+        x = torch.randn(B, H, W, C, generator=g).cuda()
+        r, a = rel_err(fb.fused_bottleneck_cuda(x, *wts),
+                       fb.fused_bottleneck_plain(x, *wts))
+        torch.cuda.synchronize()
+        log(f"K4 f32 [B={B},H={H},W={W},C={C}] relative {r:.2e}, abs "
+            f"{a:.2e} (tol 2e-5 relative)")
+        check(r <= 2e-5, f"K4 f32 error {r} > 2e-5 at {(B, H, W, C)}")
+        err = max(err, a)
+
+    # bf16 at the resnet50 stage shapes, B=64: 3e-2 relative; timed
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    t_ops = t_bytes = 0.0
+    for (B, H, W, C), n in zip(STAGES, RESNET50_IDENTITY):
+        Wd = C // 4
+        blk, wts = _bottleneck(C, torch.bfloat16, g)
+        x = torch.randn(B, C, H, W, generator=g).to(
+            "cuda", torch.bfloat16).contiguous(
+                memory_format=torch.channels_last)
+        xh = x.permute(0, 2, 3, 1)                 # NHWC, no copy
+        with torch.no_grad():
+            y = fb.fused_bottleneck_cuda(xh, *wts)
+            r, a = rel_err(y, fb.fused_bottleneck_plain(xh, *wts))
+            lib_diff = rel_err(y.permute(0, 3, 1, 2), blk(x))[0]
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(y.float()).all()),
+                  f"K4 bf16 output not finite at {(B, H, W, C)}")
+            ms = cuda_ms(lambda: fb.fused_bottleneck_cuda(xh, *wts))
+            mp = cuda_ms(lambda: fb.fused_bottleneck_plain(xh, *wts), reps=3)
+            ml = cuda_ms(lambda: blk(x))
+        flops = 34.0 * Wd * Wd * B * H * W
+        nbytes = 2.0 * B * H * W * C * 2 + 17 * Wd * Wd * 2 + (2 * Wd + C) * 4
+        bms, by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        log(f"K4 bf16 [B={B},H={H},W={W},C={C}]: relative {r:.2e}, abs "
+            f"{a:.2e} (tol 3e-2 relative); kernel {ms:.3f} ms, plain twin "
+            f"{mp:.3f} ms, unfused Bottleneck (cuDNN + ATen) {ml:.3f} ms "
+            f"(relative difference {lib_diff:.2e}); bound {bms:.3f} ms ({by}:"
+            f" {flops / 1e9:.1f} GFLOP at 989 TFLOP/s bf16, "
+            f"{nbytes / 1e6:.1f} MB at 3.35 TB/s), kernel at "
+            f"{100 * bms / ms:.1f} % of it [{card}]")
+        check(r <= 3e-2, f"K4 bf16 error {r} > 3e-2 at {(B, H, W, C)}")
+        err = max(err, a)
+        for k, v in (("ms", ms), ("plain_ms", mp), ("bound_ms", bms),
+                     ("library_ms", ml)):
+            tot[k] += n * v
+        t_ops += n * flops / PEAK_BF16_FLOPS
+        t_bytes += n * nbytes / PEAK_BYTES
+    log(f"K4 over the 12 identity blocks of one resnet50 forward (B=64, bf16)"
+        f": kernel {tot['ms']:.3f} ms, plain twin {tot['plain_ms']:.3f} ms, "
+        f"unfused Bottlenecks {tot['library_ms']:.3f} ms, bound "
+        f"{tot['bound_ms']:.3f} ms [{card}]")
+    state["kernels"]["fused_bottleneck"].update(
+        max_abs_err=err, bound_by="operations" if t_ops >= t_bytes
+        else "bytes", **tot)
 
 
 def _golden_inputs():
@@ -364,73 +493,102 @@ def phase_golden(state):
             check(dz1 < 0.2, f"golden f32 z1 off by {dz1}")
 
 
+def _flagship_wire(state, B=FLAGSHIP_B, n_distinct=3):
+    """n_distinct dct4 batches of B copies of val_room, rolled per sample
+    (seed 0); packed once per run."""
+    import numpy as np
+    from horizonnet_tpu_torch.ops.dct import pack_dct4
+
+    if "wire" not in state:
+        img, _ = _golden_inputs()
+        rng = np.random.default_rng(0)
+        t0 = time.perf_counter()
+        wire = []
+        for _ in range(n_distinct):
+            rolls = rng.integers(0, img.shape[1], B)
+            wire.append(pack_dct4(np.stack([np.roll(img, r, axis=1)
+                                            for r in rolls])))
+        log(f"packed {n_distinct} dct4 batches of {B} in "
+            f"{time.perf_counter() - t0:.1f} s "
+            f"({wire[0].nbytes / B / 1024:.1f} KiB/pano)")
+        state["wire"] = wire
+    return state["wire"]
+
+
+def _flagship_engine(postproc, fused_blocks=""):
+    """resnet50_rnn, bf16, the flagship batch, dct4 wire, random weights
+    (seed 0)."""
+    import torch
+    from horizonnet_tpu_torch.inference import InferenceEngine
+    from horizonnet_tpu_torch.models import build_model
+
+    model = build_model("resnet50", True, device="cuda",
+                        dtype=torch.bfloat16, lstm_impl="kernel", seed=0,
+                        fused_blocks=fused_blocks)
+    return InferenceEngine(model, model.state_dict(), batch_size=FLAGSHIP_B,
+                           postproc=postproc, input_format="dct4",
+                           device="cuda")
+
+
+def _serve(eng, feed, finish, workers=1):
+    """serve_stream at depth 3 over feed: (panos/s, results)."""
+    from horizonnet_tpu_torch.inference import serve_stream
+
+    t0 = time.perf_counter()
+    results = list(serve_stream(eng, iter(feed), depth=3, finish=finish,
+                                workers=workers))
+    return len(feed) * FLAGSHIP_B / (time.perf_counter() - t0), results
+
+
+def _device_rate(eng, xs, n_batches):
+    """Panos/s of the engine's program on batches already on the card."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n_batches):
+        eng.run(xs[i % len(xs)])
+    torch.cuda.synchronize()
+    return n_batches * FLAGSHIP_B / (time.perf_counter() - t0)
+
+
 def phase_flagship(state):
     import numpy as np
     import torch
-    from horizonnet_tpu_torch.inference import InferenceEngine, serve_stream
-    from horizonnet_tpu_torch.models import build_model
     from horizonnet_tpu_torch.ops import cuda_lstm
-    from horizonnet_tpu_torch.ops.dct import pack_dct4
     from horizonnet_tpu_torch.postproc import unpack_cuboid_outputs
 
-    B, n_distinct, n_batches, reps = 64, 3, 12, 3
-    img, _ = _golden_inputs()
-    rng = np.random.default_rng(0)
-    t0 = time.perf_counter()
-    wire = []
-    for _ in range(n_distinct):
-        rolls = rng.integers(0, img.shape[1], B)
-        wire.append(pack_dct4(np.stack([np.roll(img, r, axis=1)
-                                        for r in rolls])))
-    log(f"flagship: packed {n_distinct} dct4 batches of {B} in "
-        f"{time.perf_counter() - t0:.1f} s ({wire[0].nbytes / B / 1024:.1f} "
-        "KiB/pano)")
-
-    model = build_model("resnet50", True, device="cuda",
-                        dtype=torch.bfloat16, lstm_impl="kernel", seed=0)
-    eng = InferenceEngine(model, model.state_dict(), batch_size=B,
-                          postproc="cuboid", input_format="dct4",
-                          device="cuda")
+    B, n_batches, reps = FLAGSHIP_B, 12, 3
+    wire = _flagship_wire(state)
+    eng = _flagship_engine("cuboid")
 
     def finish(outs):
-        return unpack_cuboid_outputs(outs)
-
-    def check_results(results):
-        for cid, z1 in results:
-            check(cid.shape == (B, 8, 2) and z1.shape == (B,),
-                  f"flagship result shapes {cid.shape} {z1.shape}")
-            check(bool(np.isfinite(cid).all() and np.isfinite(z1).all()),
-                  "flagship result not finite")
+        cid, z1 = unpack_cuboid_outputs(outs)
+        check(cid.shape == (B, 8, 2) and z1.shape == (B,),
+              f"flagship result shapes {cid.shape} {z1.shape}")
+        check(bool(np.isfinite(cid).all() and np.isfinite(z1).all()),
+              "flagship result not finite")
+        return cid
 
     t0 = time.perf_counter()
-    check_results(list(serve_stream(eng, iter(wire), depth=3,
-                                    finish=finish)))
+    _serve(eng, wire, finish)
     torch.cuda.synchronize()
-    log(f"flagship warm-up ({n_distinct} batches): "
+    log(f"flagship warm-up ({len(wire)} batches): "
         f"{time.perf_counter() - t0:.1f} s")
 
-    feed = [wire[i % n_distinct] for i in range(n_batches)]
+    feed = [wire[i % len(wire)] for i in range(n_batches)]
     serving = []
     cuda_lstm.launches = 0
     for _ in range(reps):
-        t0 = time.perf_counter()
-        results = list(serve_stream(eng, iter(feed), depth=3, finish=finish))
-        serving.append(n_batches * B / (time.perf_counter() - t0))
+        rate, results = _serve(eng, feed, finish)
         check(len(results) == n_batches, "serve_stream lost batches")
-        check_results(results)
+        serving.append(rate)
     launches = cuda_lstm.launches
     check(launches > 0, "K1 was not launched on the main path")
     state["kernels"]["bilstm_fwd"]["launches"] = launches
 
     xs = [eng.put(w) for w in wire]
-    torch.cuda.synchronize()
-    device = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        for i in range(n_batches):
-            eng.run(xs[i % n_distinct])
-        torch.cuda.synchronize()
-        device.append(n_batches * B / (time.perf_counter() - t0))
+    device = [_device_rate(eng, xs, n_batches) for _ in range(reps)]
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"flagship resnet50_rnn bf16 B={B} dct4 cuboid: serving "
         f"{statistics.median(serving):.1f} panos/s (median of {reps} runs "
@@ -439,6 +597,167 @@ def phase_flagship(state):
         f"{statistics.median(device):.1f} panos/s (runs "
         f"{[round(v, 1) for v in device]}), peak memory {peak:.1f} GiB, "
         f"K1 launches {launches} [{state['card']}]")
+
+
+def phase_fused(state):
+    import numpy as np
+    import torch
+    from horizonnet_tpu_torch.models import build_model
+    from horizonnet_tpu_torch.ops import fused_block
+    from horizonnet_tpu_torch.postproc import unpack_cuboid_outputs
+
+    card = state["card"]
+    n_batches, reps = 12, 2
+    wire = _flagship_wire(state)
+    engs = {"unfused": _flagship_engine("cuboid"),
+            "fused": _flagship_engine("cuboid", fused_blocks="kernel")}
+    xs = [engs["fused"].put(w) for w in wire]
+
+    # one forward = 12 K4 launches; the corner drift on the first batch
+    with torch.no_grad():
+        cid = {}
+        for name, eng in engs.items():
+            fused_block.launches = 0
+            cid[name] = unpack_cuboid_outputs(eng.run(xs[0]))[0]
+            torch.cuda.synchronize()
+            if name == "fused":
+                check(fused_block.launches == 12, f"K4 launched "
+                      f"{fused_block.launches} times in one forward, not 12")
+            else:
+                check(fused_block.launches == 0, "the unfused model ran K4")
+    drift = np.abs(cid["fused"] - cid["unfused"]) * np.array([1024, 512])
+    log(f"fused vs unfused flagship, first batch (bf16, random weights): "
+        f"max corner drift {drift.max():.3f} px, median "
+        f"{np.median(drift):.3f} px")
+    check(bool(np.isfinite(cid["fused"]).all()), "fused corners not finite")
+
+    def finish(outs):
+        cid, z1 = unpack_cuboid_outputs(outs)
+        check(bool(np.isfinite(cid).all() and np.isfinite(z1).all()),
+              "fused flagship result not finite")
+        return cid
+
+    feed = [wire[i % len(wire)] for i in range(n_batches)]
+    for eng in engs.values():                              # warm-up
+        _serve(eng, wire, finish)
+    serving = {k: [] for k in engs}
+    device = {k: [] for k in engs}
+    fused_block.launches = 0
+    for name in ("unfused", "fused", "fused", "unfused") * reps:
+        serving[name].append(_serve(engs[name], feed, finish)[0])
+    launches = fused_block.launches
+    for name in ("unfused", "fused", "fused", "unfused") * reps:
+        device[name].append(_device_rate(engs[name], xs, n_batches))
+    forwards = 2 * reps * n_batches
+    check(launches == 12 * forwards, f"K4 launches {launches} on "
+          f"{forwards} fused forwards, not 12 each")
+    state["kernels"]["fused_bottleneck"]["launches"] = launches
+    med = {k: statistics.median(v) for k, v in serving.items()}
+    dmed = {k: statistics.median(v) for k, v in device.items()}
+    log(f"flagship resnet50_rnn bf16 B=64 dct4 cuboid, in turns (unfused, "
+        f"fused, fused, unfused) x {reps}: serving unfused "
+        f"{med['unfused']:.1f}, fused {med['fused']:.1f} panos/s (runs "
+        f"{[round(v, 1) for v in serving['unfused']]} / "
+        f"{[round(v, 1) for v in serving['fused']]}); device unfused "
+        f"{dmed['unfused']:.1f}, fused {dmed['fused']:.1f} panos/s (runs "
+        f"{[round(v, 1) for v in device['unfused']]} / "
+        f"{[round(v, 1) for v in device['fused']]}); K4 launches {launches} "
+        f"({forwards} forwards) [{card}]")
+    del engs, xs
+    torch.cuda.empty_cache()
+
+    # f32, B=1 at 512x1024, randomized batch norm, TF32 off: the
+    # model-level proof (the golden checkpoint is resnet18, no bottlenecks)
+    g = torch.Generator(device="cpu").manual_seed(1)
+    models = [build_model("resnet50", True, device="cuda", seed=0,
+                          fused_blocks=f) for f in ("", "kernel")]
+    with torch.no_grad():
+        for m in models[0].modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                n = m.num_features
+                for t, lo, hi in ((m.weight, 0.5, 1.5), (m.running_var, 0.5,
+                                                          1.5)):
+                    t.copy_(torch.empty(n).uniform_(lo, hi, generator=g))
+                for t in (m.bias, m.running_mean):
+                    t.copy_(torch.empty(n).normal_(0, 0.1, generator=g))
+        models[1].load_state_dict(models[0].state_dict())
+        x = torch.rand(1, 3, 512, 1024, generator=g).cuda()
+        fused_block.launches = 0
+        (bu, cu), (bf, cf) = (m(x) for m in models)
+        torch.cuda.synchronize()
+    db = (bf - bu).abs().max().item()
+    dc = (cf - cu).abs().max().item()
+    log(f"fused vs unfused resnet50_rnn f32 B=1 512x1024 (randomized batch "
+        f"norm, TF32 off): max|bon| diff {db:.2e}, max|cor| diff {dc:.2e} "
+        f"(tol 2e-4), K4 launches {fused_block.launches}")
+    check(fused_block.launches == 12, "the f32 fused model did not run K4 "
+          "12 times")
+    check(db <= 2e-4 and dc <= 2e-4, f"fused f32 model off: {db}, {dc}")
+
+
+def phase_general(state):
+    import numpy as np
+    import torch
+    from horizonnet_tpu_torch.inference import InferenceEngine
+    from horizonnet_tpu_torch.ops.yuv import pack_yuv420
+    from horizonnet_tpu_torch.postproc import finish_general_batch
+    from horizonnet_tpu_torch.train.checkpoint import load_trained_model
+
+    card = state["card"]
+    img, want = _golden_inputs()
+    model, sd = load_trained_model(
+        os.path.join(GOLDEN, "resnet18_rnn_synth.ckpt"), device="cuda")
+    for fmt, x in (("float", img[None].astype(np.float32) / 255.0),
+                   ("yuv420", pack_yuv420(img[None]))):
+        eng = InferenceEngine(model, sd, postproc="general",
+                              input_format=fmt, device="cuda")
+        (cor_id, z0, z1), = finish_general_batch(eng(x))
+        n = len(cor_id)
+        check(cor_id.shape == want["general_uv"].shape,
+              f"golden general ({fmt}): {n} corners, not 12")
+        dpx = float(np.abs(cor_id - want["general_uv"]).max() * 512)
+        dz1 = abs(z1 - float(want["general_z1"]))
+        log(f"golden general f32 ({fmt} wire, TF32 off): {n} corners, "
+            f"{dpx:.4f} px from general_uv, |dz1| {dz1:.4f}; corners "
+            f"{np.round(cor_id, 4).tolist()}")
+        check(dpx < 2.0, f"golden general ({fmt}) corners off by {dpx} px")
+        if fmt == "float":
+            check(dz1 < 0.2, f"golden general z1 off by {dz1}")
+
+    n_batches, reps = 12, 2
+    wire = _flagship_wire(state)
+    engs = {"general": _flagship_engine("general"),
+            "cuboid": _flagship_engine("cuboid")}
+
+    def finish(outs):
+        res = finish_general_batch(outs)
+        check(len(res) == FLAGSHIP_B and all(
+            np.isfinite(c).all() and np.isfinite(z1) for c, _, z1 in res),
+            "general result not finite")
+        return res
+
+    feed = [wire[i % len(wire)] for i in range(n_batches)]
+    _serve(engs["general"], wire, finish, 4)                  # warm-up
+    serving = [_serve(engs["general"], feed, finish, 4)[0]
+               for _ in range(reps)]
+    xs = [engs["general"].put(w) for w in wire]
+    device = {k: [] for k in engs}
+    for name in ("general", "cuboid", "cuboid", "general") * reps:
+        device[name].append(_device_rate(engs[name], xs, n_batches))
+    outs = engs["general"].run(xs[0])
+    t0 = time.perf_counter()
+    finish(outs)
+    t_tail = time.perf_counter() - t0
+    dmed = {k: statistics.median(v) for k, v in device.items()}
+    log(f"general resnet50_rnn bf16 B=64 dct4, serve_stream depth 3 with "
+        f"finish_general_batch on 4 workers: serving "
+        f"{statistics.median(serving):.1f} panos/s (runs "
+        f"{[round(v, 1) for v in serving]}); device general "
+        f"{dmed['general']:.1f}, cuboid {dmed['cuboid']:.1f} panos/s in "
+        f"turns (runs {[round(v, 1) for v in device['general']]} / "
+        f"{[round(v, 1) for v in device['cuboid']]}); the host tail of one "
+        f"batch (fetch + finish_general_batch, one thread) "
+        f"{t_tail * 1e3:.1f} ms [{card}]")
 
 
 def _write_rooms(root, n, H=512, W=1024):
@@ -632,22 +951,31 @@ def phase_cli(state):
 
     _, want = _golden_inputs()
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as out:
-        cmd = [sys.executable, "-m", "horizonnet_tpu_torch.cli.inference",
-               "--pth", os.path.join(GOLDEN, "resnet18_rnn_synth.ckpt"),
-               "--img_glob", os.path.join(GOLDEN, "val_room.png"),
-               "--output_dir", out, "--device_postproc", "--force_cuboid",
-               "--device", "cuda"]
-        env = dict(os.environ, PYTHONPATH=REPO)
-        proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
-                              text=True, timeout=600)
-        check(proc.returncode == 0,
-              f"CLI failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-        with open(os.path.join(out, "val_room.json")) as f:
-            got = json.load(f)
-    dpx = float(np.abs(np.asarray(got["uv"]) - want["cuboid_uv"]).max() * 512)
-    log(f"cli: val_room.json corners {dpx:.4f} px from golden_outputs.npz")
-    check(dpx < 2.0, f"CLI corners off by {dpx} px")
+    for mode, extra in (("cuboid", ["--force_cuboid"]), ("general", [])):
+        with tempfile.TemporaryDirectory(
+                dir=os.path.join(REPO, "build")) as out:
+            cmd = [sys.executable, "-m",
+                   "horizonnet_tpu_torch.cli.inference",
+                   "--pth", os.path.join(GOLDEN, "resnet18_rnn_synth.ckpt"),
+                   "--img_glob", os.path.join(GOLDEN, "val_room.png"),
+                   "--output_dir", out, "--device_postproc", *extra,
+                   "--device", "cuda"]
+            env = dict(os.environ, PYTHONPATH=REPO)
+            proc = subprocess.run(cmd, cwd=REPO, env=env,
+                                  capture_output=True, text=True,
+                                  timeout=600)
+            check(proc.returncode == 0, f"{mode} CLI failed "
+                  f"({proc.returncode}):\n{proc.stderr[-4000:]}")
+            with open(os.path.join(out, "val_room.json")) as f:
+                got = json.load(f)
+        uv = np.asarray(got["uv"])
+        ref = want[f"{mode}_uv"]
+        check(uv.shape == ref.shape, f"{mode} CLI: {len(uv)} corners, not "
+              f"{len(ref)}")
+        dpx = float(np.abs(uv - ref).max() * 512)
+        log(f"cli {mode}: val_room.json corners {dpx:.4f} px from "
+            "golden_outputs.npz")
+        check(dpx < 2.0, f"{mode} CLI corners off by {dpx} px")
 
 
 def main(argv=None):
@@ -670,32 +998,40 @@ def main(argv=None):
 
     from concurrent.futures import ThreadPoolExecutor
 
-    from horizonnet_tpu_torch.ops import cuda_lstm, cuda_lstm_train
+    from horizonnet_tpu_torch.ops import (cuda_lstm, cuda_lstm_train,
+                                          fused_block)
 
-    def record(name, source, line):
+    def record(name, source, replaces):
         return {"name": name, "route": "cuda",
                 "source": f"horizonnet_tpu_torch/csrc/{source}",
-                "replaces": f"horizonnet_tpu/ops/pallas_lstm.py:{line}",
+                "replaces": f"horizonnet_tpu/ops/{replaces}",
                 "launches": None, "max_abs_err": None, "ms": None,
                 "plain_ms": None, "bound_ms": None, "bound_by": None,
                 "library_ms": None}
 
     state = {"card": card_line(), "kernels": {
-        "bilstm_fwd": record("bilstm_fwd", "bilstm_fwd.cu", 31),
-        "bilstm_train_fwd": record("bilstm_train_fwd", "bilstm_train.cu", 56),
-        "bilstm_bwd": record("bilstm_bwd", "bilstm_train.cu", 87)}}
+        "bilstm_fwd": record("bilstm_fwd", "bilstm_fwd.cu",
+                             "pallas_lstm.py:31"),
+        "bilstm_train_fwd": record("bilstm_train_fwd", "bilstm_train.cu",
+                                   "pallas_lstm.py:56"),
+        "bilstm_bwd": record("bilstm_bwd", "bilstm_train.cu",
+                             "pallas_lstm.py:87"),
+        "fused_bottleneck": record("fused_bottleneck", "fused_bottleneck.cu",
+                                   "pallas_block.py:58")}}
     log(state["card"])
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        for f in [pool.submit(m.build) for m in (cuda_lstm, cuda_lstm_train)]:
+    with ThreadPoolExecutor(3) as pool:
+        for f in [pool.submit(m.build)
+                  for m in (cuda_lstm, cuda_lstm_train, fused_block)]:
             f.result()
-    log(f"K1 and K2/K3 builds (nvcc in parallel, or the cached libraries): "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"K1, K2/K3 and K4 builds (nvcc in parallel, or the cached "
+        f"libraries): {time.perf_counter() - t0:.1f} s")
 
     phases = {"kernel": phase_kernel, "golden": phase_golden,
-              "flagship": phase_flagship, "cli": phase_cli,
+              "flagship": phase_flagship, "fused": phase_fused,
+              "general": phase_general, "cli": phase_cli,
               "train": phase_train, "train_cli": phase_train_cli}
     for name in args.phases:
         t0 = time.perf_counter()

@@ -5,7 +5,12 @@ Counterpart of horizonnet_tpu/cli/inference.py (reference inference.py:
 
     python -m horizonnet_tpu_torch.cli.inference --pth model.ckpt \\
         --img_glob 'panos/*.png' --output_dir out \\
-        --device_postproc --force_cuboid [--device cuda]
+        --device_postproc [--force_cuboid] [--device cuda]
+
+With --force_cuboid the device fits a cuboid and only [B, 17] corners
+and z1 come back; without it the device computes the general-layout
+candidates and a worker thread runs the greedy wall commitment on them
+(postproc.finish_general_batch), as the JAX CLI does.
 
 ``--lstm_impl``: ``pallas`` runs the CUDA kernel (csrc/bilstm_fwd.cu),
 ``scan`` the plain PyTorch loop, ``auto`` the kernel on a CUDA device.
@@ -13,8 +18,7 @@ Counterpart of horizonnet_tpu/cli/inference.py (reference inference.py:
 stem is the same math rearranged for the TPU's matrix unit. Paths still
 to port raise NotImplementedError naming their ROADMAP item: the host
 postprocess (no --device_postproc, and --force_raw / --visualize /
---min_v / --r overrides), general layouts (no --force_cuboid),
---quant_int8 and --profile_dir.
+--min_v / --r overrides), --quant_int8 and --profile_dir.
 """
 
 import argparse
@@ -47,8 +51,9 @@ def main(argv=None):
     parser.add_argument("--force_raw", action="store_true")
     parser.add_argument("--device_postproc", action="store_true",
                         help="fuse the Manhattan post-processing into the "
-                             "device program; only [B, 17] corners + z1 "
-                             "cross back per batch")
+                             "device program (cuboid or general per "
+                             "--force_cuboid); only the packed fit or "
+                             "candidates cross back per batch")
     parser.add_argument("--batch_size", default=4, type=int,
                         help="panos per device step")
     parser.add_argument("--wire", default="uint8",
@@ -78,10 +83,6 @@ def main(argv=None):
         raise NotImplementedError(
             "the host postprocess path (no --device_postproc, or "
             "--force_raw/--visualize/--min_v/--r) is ROADMAP Queue 1 item 6")
-    if not args.force_cuboid:
-        raise NotImplementedError(
-            "general-layout serving (--device_postproc without "
-            "--force_cuboid) is ROADMAP Queue 1 item 5")
     if args.quant_int8:
         raise NotImplementedError("--quant_int8 is ROADMAP Queue 1 item 7")
     if args.profile_dir:
@@ -91,7 +92,7 @@ def main(argv=None):
     import torch
 
     from ..inference import InferenceEngine, resolve_device, serve_stream
-    from ..postproc import unpack_cuboid_outputs
+    from ..postproc import finish_general_batch, unpack_cuboid_outputs
     from ..train.checkpoint import load_trained_model
     from ..utils.image import load_pano
 
@@ -109,7 +110,8 @@ def main(argv=None):
         lstm_impl=lstm_impl)
     engine = InferenceEngine(model, state_dict, batch_size=args.batch_size,
                              flip=args.flip, rotate=args.rotate,
-                             postproc="cuboid", input_format=args.wire,
+                             postproc="cuboid" if args.force_cuboid
+                             else "general", input_format=args.wire,
                              device=device)
 
     chunks = [paths[i:i + args.batch_size]
@@ -132,6 +134,8 @@ def main(argv=None):
             yield x
 
     def finish(outs):
+        if not args.force_cuboid:
+            return finish_general_batch(outs)
         cid, z1 = unpack_cuboid_outputs(outs)
         return [(cid[b], 50.0, float(z1[b])) for b in range(len(cid))]
 

@@ -1,7 +1,8 @@
 """Equirectangular pixel <-> angle <-> floor-plane transforms (host numpy).
 
 Copy of the numpy halves of horizonnet_tpu/geometry/equirect.py that the
-training labels need (data/labels.py, data/synth.py, geometry/lines.py),
+training labels need (data/labels.py, data/synth.py, geometry/lines.py)
+and the general-layout serving tail (postproc/manhattan.py, serving.py),
 with the same conventions (reference misc/panostretch.py and
 misc/post_proc.py): pixel centers at +0.5, longitude u in (-pi, pi],
 "down-positive" v for the boundary and label pipeline, "up-positive" v
@@ -57,6 +58,20 @@ def xy2coor(xy, z=50, coorW=1024, coorH=512, floorW=1024, floorH=512):
     coorx = (u / (2 * PI) + 0.5) * coorW - 0.5
     coory = (-v / PI + 0.5) * coorH - 0.5
     return np.stack([coorx, coory], axis=-1)
+
+
+def x_u_solve_y(x, u, floorW=1024, floorH=512):
+    """Plan y where the ray at longitude u meets the wall x = const.
+    Ref: misc/post_proc.py:43-45."""
+    c = (x - floorW / 2 + 0.5) / np.sin(u)
+    return -c * np.cos(u) + floorH / 2 - 0.5
+
+
+def y_u_solve_x(y, u, floorW=1024, floorH=512):
+    """Plan x where the ray at longitude u meets the wall y = const.
+    Ref: misc/post_proc.py:48-50."""
+    c = -(y - floorH / 2 + 0.5) / np.cos(u)
+    return c * np.sin(u) + floorW / 2 - 0.5
 
 
 def infer_coory(coory0, h, z0=50, coorH=512):

@@ -1,4 +1,4 @@
-"""Serving engine: wire decode + batched TTA forward + fused cuboid fit.
+"""Serving engine: wire decode + batched TTA forward + fused layout fit.
 
 Counterpart of horizonnet_tpu/inference.py's InferenceEngine and
 serve_stream (reference inference.py:21-141). One engine serves one fixed
@@ -6,18 +6,18 @@ config (batch, H, W, TTA, wire format, postproc) on one device: ``put``
 uploads a host batch, ``run`` queues decode, forward and postprocess on
 the device and returns device tensors without waiting, so the host can
 prepare the next batch while the device works.
-
-Modes still to port raise NotImplementedError naming their ROADMAP item:
-``postproc="general"`` (Queue 1 item 5) and the yuv420 wire (item 2).
 """
 
 import numpy as np
 import torch
 
 from .ops import dct as _dct
-from .postproc.device import pack_cuboid_outputs, postprocess_cuboid_batch
+from .ops.yuv import unpack_yuv420_to_rgb
+from .postproc.device import (pack_cuboid_outputs, pack_general_outputs,
+                              postprocess_cuboid_batch,
+                              postprocess_general_batch)
 
-INPUT_FORMATS = ("float", "uint8", "dct", "dct4")
+INPUT_FORMATS = ("float", "uint8", "yuv420", "dct", "dct4")
 
 
 def resolve_device(device):
@@ -59,25 +59,20 @@ class InferenceEngine:
 
     ``model`` is a port HorizonNet; ``state_dict`` its weights (loaded
     in place, casting to each parameter's dtype). ``input_format``:
-    float [B, H, W, 3] in [0, 1], uint8 [B, H, W, 3], or the int8 dct /
-    dct4 wire (ops/dct.py). ``postproc``: None -> (bon [B, 2, W],
-    cor_prob [B, 1, W]); "cuboid" -> one packed [B, 17] tensor for
-    postproc.unpack_cuboid_outputs.
+    float [B, H, W, 3] in [0, 1], uint8 [B, H, W, 3], the uint8 yuv420
+    planes [B, 6, H/2, W/2] (ops/yuv.py), or the int8 dct / dct4 wire
+    (ops/dct.py). ``postproc``: None -> (bon [B, 2, W], cor_prob
+    [B, 1, W]); "cuboid" -> one packed [B, 17] tensor for
+    postproc.unpack_cuboid_outputs; "general" -> one packed [B, 9K+17]
+    candidate tensor for postproc.finish_general_batch.
     """
 
     def __init__(self, model, state_dict, batch_size=1, H=512, W=1024,
                  flip=False, rotate=(), postproc=None, input_format="float",
                  dct_luma_m=None, dct_chroma_m=None, dct_quality=None, *,
                  device):
-        if postproc == "general":
-            raise NotImplementedError(
-                "postproc='general' (general-layout serving) is ROADMAP "
-                "Queue 1 item 5")
-        if postproc not in (None, "cuboid"):
+        if postproc not in (None, "cuboid", "general"):
             raise ValueError(f"unknown postproc mode {postproc!r}")
-        if input_format == "yuv420":
-            raise NotImplementedError(
-                "the yuv420 wire is ROADMAP Queue 1 item 2 (still to port)")
         if input_format not in INPUT_FORMATS:
             raise ValueError(f"unknown input_format {input_format!r}")
         self.device = resolve_device(device)
@@ -98,6 +93,8 @@ class InferenceEngine:
             self._in = (np.float32, (batch_size, H, W, 3))
         elif input_format == "uint8":
             self._in = (np.uint8, (batch_size, H, W, 3))
+        elif input_format == "yuv420":
+            self._in = (np.uint8, (batch_size, 6, H // 2, W // 2))
         elif input_format == "dct":
             self._in = (np.int8, _dct.dct_wire_shape(batch_size, H, W, *wire))
         else:
@@ -122,6 +119,8 @@ class InferenceEngine:
         fmt = self.input_format
         if fmt == "uint8":
             x = x.float() / 255.0
+        elif fmt == "yuv420":
+            x = unpack_yuv420_to_rgb(x)
         elif fmt in ("dct", "dct4"):
             unpack = (_dct.unpack_dct_to_rgb if fmt == "dct"
                       else _dct.unpack_dct4_to_rgb)
@@ -138,6 +137,9 @@ class InferenceEngine:
         if self.postproc == "cuboid":
             return pack_cuboid_outputs(
                 postprocess_cuboid_batch(bon, cor[:, 0], self.H, self.W))
+        if self.postproc == "general":
+            return pack_general_outputs(
+                postprocess_general_batch(bon, cor[:, 0], self.H, self.W))
         return bon, cor
 
     def __call__(self, x):

@@ -126,20 +126,22 @@ class BiLSTM(nn.Module):
 
 
 class _FeatureExtractor(nn.Module):
-    def __init__(self, backbone, bn_momentum):
+    def __init__(self, backbone, bn_momentum, fused_blocks):
         super().__init__()
-        self.encoder = ResNetEncoder(backbone, bn_momentum)
+        self.encoder = ResNetEncoder(backbone, bn_momentum, fused_blocks)
 
 
 class HorizonNet(nn.Module):
     """Built on ``device``, computing in ``dtype``, with conv and linear
     weights stored in ``param_dtype`` (default: ``dtype``); parameters are
     random from a torch.Generator seeded with ``seed`` until weights are
-    loaded. ``bn_momentum`` is torch's running-stat momentum."""
+    loaded. ``bn_momentum`` is torch's running-stat momentum.
+    ``fused_blocks="kernel"`` serves the identity bottlenecks as fused
+    blocks (models/resnet.py, K4); the default runs them unfused."""
 
     def __init__(self, backbone="resnet50", use_rnn=True, *, device,
                  dtype=torch.float32, lstm_impl="kernel", seed=0,
-                 param_dtype=None, bn_momentum=0.1):
+                 param_dtype=None, bn_momentum=0.1, fused_blocks=""):
         super().__init__()
         if not backbone.startswith("res"):
             raise NotImplementedError(
@@ -149,7 +151,8 @@ class HorizonNet(nn.Module):
         self.use_rnn = use_rnn
         self.dtype = dtype
         with torch.device("meta"):
-            self.feature_extractor = _FeatureExtractor(backbone, bn_momentum)
+            self.feature_extractor = _FeatureExtractor(backbone, bn_momentum,
+                                                       fused_blocks)
             c1, c2, c3, c4 = resnet_feature_channels(backbone)
             self.reduce_height_module = GlobalHeightStage(
                 (c1, c2, c3, c4), OUT_SCALE, bn_momentum)

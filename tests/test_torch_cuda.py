@@ -130,3 +130,54 @@ def test_train_kernels_reject_what_they_cannot_run(cuda):
         clt.train_fwd_cuda(xw, w.bfloat16())
     with pytest.raises(ValueError, match="CUDA tensors"):
         clt.train_bwd_cuda(xw, dys, dys.cpu(), w)
+
+
+def _block_inputs(cuda, B, H, W, C, dtype, seed):
+    """x and folded weights with nonzero biases (relu(b1) != 0 at the
+    image's top and bottom rows is what the zero halo must undo)."""
+    rng = np.random.default_rng(seed)
+    Wd = C // 4
+    f = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda)  # noqa
+    x = f(rng.normal(0, 1, (B, H, W, C))).to(getattr(torch, dtype))
+    return (x, f(rng.normal(0, 1, (C, Wd)) / np.sqrt(C)),
+            f(rng.normal(0, 1, Wd)),
+            f(rng.normal(0, 1, (3, 3, Wd, Wd)) / np.sqrt(9 * Wd)),
+            f(rng.normal(0, 1, Wd)), f(rng.normal(0, 1, (Wd, C)) / np.sqrt(Wd)),
+            f(rng.normal(0, 1, C)))
+
+
+# K4. f32: the same f32 sums in another order, relative 2e-5 (the JAX
+# package's fused-block bar). bf16: m and m2 round to bf16 at the same
+# points, but a sum in another order can flip a rounding: 3e-2 relative,
+# the JAX package's bf16 bar. The shapes are tests/test_pallas_block.py's
+# plus ragged tiles (H, W not multiples of the tile).
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 3e-2)])
+@pytest.mark.parametrize("B,H,W,C", [(2, 16, 32, 64), (1, 64, 32, 64),
+                                     (2, 32, 16, 256), (1, 16, 8, 2048),
+                                     (1, 13, 10, 64), (2, 9, 21, 128)])
+def test_fused_bottleneck_kernel_matches_twin(cuda, dtype, tol, B, H, W, C):
+    from horizonnet_tpu_torch.ops import fused_block
+
+    args = _block_inputs(cuda, B, H, W, C, dtype, C + H)
+    before = fused_block.launches
+    got = fused_block.fused_bottleneck(*args)
+    torch.cuda.synchronize()
+    assert fused_block.launches == before + 1
+    want = fused_block.fused_bottleneck_plain(*args)
+    assert got.dtype == want.dtype and got.shape == (B, H, W, C)
+    assert _rel_err(got, want) <= tol
+
+
+@pytest.mark.cuda
+def test_fused_bottleneck_kernel_rejects_what_it_cannot_run(cuda):
+    from horizonnet_tpu_torch.ops import fused_block
+
+    x, w1, b1, w2, b2, w3, b3 = _block_inputs(cuda, 1, 8, 8, 96, "float32", 0)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        fused_block.fused_bottleneck_cuda(x, w1, b1, w2, b2, w3, b3)
+    x, w1, b1, w2, b2, w3, b3 = _block_inputs(cuda, 1, 8, 8, 64, "float32", 0)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fused_block.fused_bottleneck_cuda(x.half(), w1, b1, w2, b2, w3, b3)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fused_block.fused_bottleneck_cuda(x, w1.cpu(), b1, w2, b2, w3, b3)

@@ -168,11 +168,22 @@ def test_engine_wire_formats(small):
 
 
 def test_engine_refuses_modes_still_to_port(small):
+    """General layouts and the yuv420 wire are served now (the packed
+    candidate array and the [B, 6, H/2, W/2] planes); unknown modes are
+    refused."""
+    from horizonnet_tpu_torch.ops.yuv import pack_yuv420
+    from horizonnet_tpu_torch.postproc import finish_general_batch
+
     sd = small.state_dict()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        InferenceEngine(small, sd, postproc="general", device="cpu")
-    with pytest.raises(NotImplementedError, match="yuv420"):
-        InferenceEngine(small, sd, input_format="yuv420", device="cpu")
+    eng = InferenceEngine(small, sd, W=128, postproc="general",
+                          input_format="yuv420", device="cpu")
+    img = np.random.default_rng(2).integers(0, 256, (1, 512, 128, 3),
+                                            dtype=np.uint8)
+    packed = eng(pack_yuv420(img))
+    assert packed.shape == (1, 9 * 32 + 17) and packed.dtype == torch.float32
+    (cor_id, z0, z1), = finish_general_batch(packed, 128, 512)
+    assert cor_id.ndim == 2 and cor_id.shape[1] == 2 and len(cor_id) >= 8
+    assert np.isfinite(cor_id).all() and z0 == 50.0 and np.isfinite(z1)
     with pytest.raises(ValueError, match="postproc"):
         InferenceEngine(small, sd, postproc="mesh", device="cpu")
     with pytest.raises(ValueError, match="input_format"):
@@ -206,7 +217,7 @@ def test_cli_golden(golden, tmp_path):
     ([], "host postprocess"),
     (["--device_postproc", "--force_cuboid", "--visualize"],
      "host postprocess"),
-    (["--device_postproc"], "Queue 1 item 5"),
+    (["--device_postproc", "--profile_dir", "trace"], "item 11"),
     (["--device_postproc", "--force_cuboid", "--quant_int8"], "item 7"),
 ])
 def test_cli_refuses_paths_still_to_port(extra, match, tmp_path):
@@ -225,6 +236,9 @@ import pkgutil, sys, importlib
 import horizonnet_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
+import horizonnet_tpu_torch.ops.fused_block, horizonnet_tpu_torch.ops.yuv
+import horizonnet_tpu_torch.postproc.manhattan
+import horizonnet_tpu_torch.postproc.serving
 import torch
 from horizonnet_tpu_torch.inference import InferenceEngine
 from horizonnet_tpu_torch.models import build_model
@@ -234,6 +248,12 @@ eng = InferenceEngine(m, m.state_dict(), W=64, postproc="cuboid",
 import numpy as np
 out = eng(np.zeros((1, 512, 64, 3), np.uint8))
 assert out.shape == (1, 17)
+m = build_model("resnet50", True, device="cpu", fused_blocks="kernel")
+eng = InferenceEngine(m, m.state_dict(), W=64, postproc="general",
+                      input_format="uint8", device="cpu")
+from horizonnet_tpu_torch.postproc import finish_general_batch
+assert len(finish_general_batch(eng(np.zeros((1, 512, 64, 3), np.uint8)),
+                                64, 512)) == 1
 bad = sorted(k for k in sys.modules if k.split(".")[0] in
              ("jax", "jaxlib", "flax", "horizonnet_tpu"))
 print("BAD", bad)
