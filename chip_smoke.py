@@ -19,11 +19,14 @@ Phases; any failed check makes the script exit non-zero:
             chain summed in another order). Times each kernel beside its
             twin, its bound (from the shapes) and cuDNN's nn.LSTM on the
             same weights (K1: layer forward; K2: forward in training; K3:
-            backward). K4: f32 at tests/test_pallas_block.py's four shapes
-            (2e-5 relative) and bf16 at the four resnet50 stage shapes at
-            B=64 (3e-2 relative, the JAX package's bars), each bf16 shape
-            timed beside the twin, its bound and the port's unfused
-            Bottleneck in eval (cuDNN convs and the ATen tail).
+            backward). K1 is also timed at B=1 and B=8, and the profiler
+            must show one K1 kernel per call. K4: f32 at
+            tests/test_pallas_block.py's four shapes (2e-5 relative), bf16
+            at 8 shapes at the edges of its tile plans and at the four
+            resnet50 stage shapes at B=64 (3e-2 relative, the JAX
+            package's bars), each stage shape timed beside the twin, its
+            bound and the port's unfused Bottleneck in eval (cuDNN convs
+            and the ATen tail), with the weight bytes it reads from L2.
   golden    the committed resnet18_rnn_synth.ckpt on val_room through
             InferenceEngine(postproc="cuboid") in f32 with TF32 off:
             corners within 2 px and z1 within 0.2 of golden_outputs.npz;
@@ -203,6 +206,18 @@ def phase_kernel(state):
     ms_p = cuda_ms(lambda: cuda_lstm.bilstm_recurrence_plain(xw, w), reps=5)
     log(f"K1 recurrence bf16 serving shape: kernel {ms_k:.3f} ms, plain twin "
         f"{ms_p:.3f} ms (CUDA events, median) [{state['card']}]")
+    # latency-bound serving: the same recurrence at batch 1 and 8
+    small = {}
+    for b in (1, 8):
+        xs, ws = xw[:, :, :b].contiguous(), w
+        e = (cuda_lstm.bilstm_recurrence_cuda(xs, ws).float()
+             - cuda_lstm.bilstm_recurrence_plain(xs, ws).float()).abs().max()
+        check(e.item() <= 1e-2, f"K1 bf16 B={b} error {e.item()} > 1e-2")
+        small[b] = cuda_ms(lambda: cuda_lstm.bilstm_recurrence_cuda(xs, ws))
+    log(f"K1 recurrence bf16 T={T} D={D} H={H}: B=1 {small[1]:.3f} ms, B=8 "
+        f"{small[8]:.3f} ms, B=64 {ms_k:.3f} ms (CUDA events, median) "
+        f"[{state['card']}]")
+    _k1_profile(xw, w)
 
     # One whole bidirectional layer (projection + recurrence) against
     # cuDNN's nn.LSTM on the same weights: the comparator, not a twin
@@ -230,15 +245,41 @@ def phase_kernel(state):
     log(f"bi-LSTM layer bf16 [T={T},B={B},I={I},H={H}]: port (matmul + K1) "
         f"{ms_layer:.3f} ms; comparator cuDNN nn.LSTM {ms_cudnn:.3f} ms; "
         f"max|port - cuDNN| = {diff:.3e} [{state['card']}]")
+    # K1's route: three exact bf16 products per step on the tensor cores;
+    # beside it the bound of the same products as f32 CUDA-core FMAs
     nbytes, flops = lstm_bytes_flops(T, D, B, H, 2)
-    bms, by = bound(flops, nbytes)
-    log(f"K1 bound at the serving shape: {bms:.3f} ms ({by}: "
-        f"{flops / 1e9:.1f} GFLOP at 67 TFLOP/s f32, {nbytes / 1e6:.1f} MB "
-        f"at 3.35 TB/s); K1 at {100 * bms / ms_k:.1f} % of it")
+    bms, by = bound(3 * flops, nbytes, PEAK_BF16_FLOPS)
+    bms32, _ = bound(flops, nbytes)
+    log(f"K1 bound at the serving shape: {bms:.3f} ms ({by}: 3 x "
+        f"{flops / 1e9:.1f} GFLOP at 989 TFLOP/s bf16, {nbytes / 1e6:.1f} MB "
+        f"at 3.35 TB/s); K1 at {100 * bms / ms_k:.1f} % of it. As f32 "
+        f"CUDA-core FMAs (67 TFLOP/s): {bms32:.3f} ms, K1 at "
+        f"{100 * bms32 / ms_k:.1f} % of that")
     state["kernels"]["bilstm_fwd"].update(
         max_abs_err=max(err32, errbf), ms=ms_k, plain_ms=ms_p, bound_ms=bms,
         bound_by=by, library_ms=ms_cudnn)
     phase_kernel_train(state, g)
+
+
+def _k1_profile(xw, w):
+    """One K1 kernel per bilstm_recurrence_cuda call, by the profiler."""
+    import torch
+    from horizonnet_tpu_torch.ops import cuda_lstm
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                cuda_lstm.bilstm_recurrence_cuda(xw, w)
+            torch.cuda.synchronize()
+    except RuntimeError as e:
+        log(f"K1 profile: not measured ({e})")
+        return
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and "recurrence" in e.key)
+    log(f"K1 profile: {n} recurrence kernels in 3 calls")
+    check(n == 3, f"K1 ran {n} kernels in 3 calls, not one per call")
 
 
 def phase_kernel_train(state, g):
@@ -408,6 +449,24 @@ def phase_kernel_fused(state, g):
         check(r <= 2e-5, f"K4 f32 error {r} > 2e-5 at {(B, H, W, C)}")
         err = max(err, a)
 
+    # bf16 at the tile plans' edges: W narrower than the tile, H and W not
+    # multiples of it, grids that are not a multiple of the cluster, and
+    # each resnet50 width at a small batch; 3e-2 relative
+    worst = 0.0
+    for B, H, W, C in ((2, 16, 8, 256), (1, 17, 23, 256), (1, 9, 40, 1024),
+                       (1, 7, 24, 2048), (2, 12, 32, 256), (2, 12, 32, 512),
+                       (2, 12, 32, 1024), (2, 12, 32, 2048)):
+        _, wts = _bottleneck(C, torch.bfloat16, g)
+        x = torch.randn(B, H, W, C, generator=g).to("cuda", torch.bfloat16)
+        r, a = rel_err(fb.fused_bottleneck_cuda(x, *wts),
+                       fb.fused_bottleneck_plain(x, *wts))
+        torch.cuda.synchronize()
+        check(r <= 3e-2, f"K4 bf16 error {r} > 3e-2 at {(B, H, W, C)}")
+        worst = max(worst, r)
+        err = max(err, a)
+    log(f"K4 bf16 at 8 edge shapes (tile plans 64-512, ragged tiles, cluster "
+        f"remainders): worst relative {worst:.2e} (tol 3e-2)")
+
     # bf16 at the resnet50 stage shapes, B=64: 3e-2 relative; timed
     tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
     t_ops = t_bytes = 0.0
@@ -437,7 +496,8 @@ def phase_kernel_fused(state, g):
             f"(relative difference {lib_diff:.2e}); bound {bms:.3f} ms ({by}:"
             f" {flops / 1e9:.1f} GFLOP at 989 TFLOP/s bf16, "
             f"{nbytes / 1e6:.1f} MB at 3.35 TB/s), kernel at "
-            f"{100 * bms / ms:.1f} % of it [{card}]")
+            f"{100 * bms / ms:.1f} % of it; weights read from L2 "
+            f"{fb.weight_bytes(B, H, W, Wd) / 1e9:.3f} GB per launch [{card}]")
         check(r <= 3e-2, f"K4 bf16 error {r} > 3e-2 at {(B, H, W, C)}")
         err = max(err, a)
         for k, v in (("ms", ms), ("plain_ms", mp), ("bound_ms", bms),

@@ -1,9 +1,7 @@
-// One time step of the bidirectional LSTM forward recurrence, shared by the
-// serving kernel K1 (bilstm_fwd.cu) and the training forward K2
-// (bilstm_train.cu). kResiduals = false is K1: the stores of the gates and
-// the cell state compile away, and the instructions are K1's as they were.
-// bilstm_fwd.cu's header says what bounds the step on the H100 and why it
-// is laid out this way.
+// One time step of the bidirectional LSTM forward recurrence, one launch
+// per step: the training forward K2 (bilstm_train.cu) instantiates it with
+// kResiduals. bilstm_train.cu's header says what bounds the step on the
+// H100.
 
 #pragma once
 
@@ -58,7 +56,7 @@ __host__ __device__ constexpr size_t fwd_smem_floats(int H) {
 
 // Step t. With kResiduals the post-activation gates [T, D, B, 4H] (i, f, g,
 // o) and the cell states [T, D, B, H] are stored too, in T's type; without
-// it `gates` and `cs` are never touched (K1 passes null).
+// it `gates` and `cs` are never touched.
 template <typename T, bool kResiduals>
 __global__ void __launch_bounds__(kThreads)
     bilstm_step(const T* __restrict__ xw, const T* __restrict__ w_hh_t,

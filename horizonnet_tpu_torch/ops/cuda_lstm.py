@@ -10,7 +10,11 @@ Contract, shared by the kernel and the twin:
   w_hh_t [D, H, 4H]     recurrent weights, transposed
   ->     [T, D, B, H]   per-step hidden states in xw's dtype
 Gate order i, f, g, o, zero initial state; h and c in f32, W converted
-to f32 before the product.
+to f32 before the product. The kernel is one cooperative launch per
+recurrence whose (H / 8, D) CTAs must all be resident at once; a launch
+the card refuses raises. For bf16 it runs the products on the tensor cores
+with h split exactly into three bf16 terms (``split_bf16x3`` spells the
+split out; nothing on the main path calls it).
 
 ``bilstm_recurrence`` launches the kernel for a CUDA tensor and runs the
 twin for a CPU tensor; there is no fallback from one to the other.
@@ -46,17 +50,34 @@ def bilstm_recurrence_plain(xw, w_hh_t):
     return torch.stack(ys).to(xw.dtype)
 
 
+def split_bf16x3(h):
+    """The kernel's exact split of f32 ``h`` into three bfloat16 terms.
+
+    hi = bf16(h), mid = bf16(h - hi), lo = bf16(h - hi - mid), each rounded
+    to nearest. Three 8-bit significands cover f32's 24, so
+    hi + mid + lo == h exactly (down to where lo would fall below bf16's
+    smallest normal), and with a bf16 W each of the three products
+    W^T term is exact: the kernel sums them in f32 on the tensor cores.
+    """
+    h = h.float()
+    hi = h.to(torch.bfloat16)
+    r = h - hi.float()
+    mid = r.to(torch.bfloat16)
+    return hi, mid, (r - mid.float()).to(torch.bfloat16)
+
+
 def _library():
     from ._build import load_kernel_library
 
     lib = load_kernel_library("bilstm_fwd")
-    lib.bilstm_fwd.argtypes = ([ctypes.c_void_p] * 5
+    lib.bilstm_fwd.argtypes = ([ctypes.c_void_p] * 6
                                + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.bilstm_fwd.restype = ctypes.c_int
-    lib.bilstm_fwd_smem_bytes.argtypes = [ctypes.c_int]
+    lib.bilstm_fwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.bilstm_fwd_smem_bytes.restype = ctypes.c_size_t
-    lib.bilstm_fwd_units_per_cta.argtypes = []
-    lib.bilstm_fwd_units_per_cta.restype = ctypes.c_int
+    for fn in (lib.bilstm_fwd_h_multiple, lib.bilstm_fwd_max_h):
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
     lib.bilstm_fwd_error_string.argtypes = [ctypes.c_int]
     lib.bilstm_fwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -84,10 +105,12 @@ def bilstm_recurrence_cuda(xw, w_hh_t):
                          f"{tuple(w_hh_t.shape)} break the [T,D,B,4H] / "
                          "[D,H,4H] contract")
     lib = _library()
-    if H % lib.bilstm_fwd_units_per_cta():
+    is_bf16 = int(xw.dtype == torch.bfloat16)
+    if H % lib.bilstm_fwd_h_multiple() or H > lib.bilstm_fwd_max_h():
         raise ValueError(f"hidden size {H} must be a multiple of "
-                         f"{lib.bilstm_fwd_units_per_cta()}")
-    if lib.bilstm_fwd_smem_bytes(H) > _SMEM_LIMIT:
+                         f"{lib.bilstm_fwd_h_multiple()} and at most "
+                         f"{lib.bilstm_fwd_max_h()}")
+    if lib.bilstm_fwd_smem_bytes(H, is_bf16) > _SMEM_LIMIT:
         raise ValueError(f"hidden size {H} needs more shared memory than a "
                          "CTA has")
     xw = xw.contiguous()
@@ -95,11 +118,12 @@ def bilstm_recurrence_cuda(xw, w_hh_t):
     ys = torch.empty(T, D, B, H, dtype=xw.dtype, device=xw.device)
     h_buf = torch.empty(2, D, B, H, dtype=torch.float32, device=xw.device)
     c_buf = torch.empty(D, B, H, dtype=torch.float32, device=xw.device)
+    flags = torch.empty(D, dtype=torch.int32, device=xw.device)
     stream = torch.cuda.current_stream(xw.device).cuda_stream
     with torch.cuda.device(xw.device):
         err = lib.bilstm_fwd(xw.data_ptr(), w_hh_t.data_ptr(), ys.data_ptr(),
-                             h_buf.data_ptr(), c_buf.data_ptr(), T, D, B, H,
-                             int(xw.dtype == torch.bfloat16), stream)
+                             h_buf.data_ptr(), c_buf.data_ptr(),
+                             flags.data_ptr(), T, D, B, H, is_bf16, stream)
     if err != 0:
         raise RuntimeError("bilstm_fwd launch failed: "
                            + lib.bilstm_fwd_error_string(err).decode())

@@ -20,7 +20,8 @@ with the rounding points of the JAX kernel:
 Products take dtype inputs and sum in f32.
 
 ``fused_bottleneck`` launches the kernel for a CUDA tensor and runs the
-twin for a CPU tensor; there is no fallback from one to the other.
+twin for a CPU tensor; there is no fallback from one to the other. A bf16
+launch the card refuses (its thread-block cluster or its TMA maps) raises.
 """
 
 import ctypes
@@ -90,6 +91,8 @@ def _library():
     lib.fused_bottleneck.restype = ctypes.c_int
     lib.fused_bottleneck_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.fused_bottleneck_smem_bytes.restype = ctypes.c_size_t
+    lib.fused_bottleneck_weight_bytes.argtypes = [ctypes.c_int] * 4
+    lib.fused_bottleneck_weight_bytes.restype = ctypes.c_size_t
     lib.fused_bottleneck_error_string.argtypes = [ctypes.c_int]
     lib.fused_bottleneck_error_string.restype = ctypes.c_char_p
     return lib
@@ -98,6 +101,12 @@ def _library():
 def build():
     """Build (or load the cached build of) the kernel library."""
     _library()
+
+
+def weight_bytes(B, H, W, Wd):
+    """Bytes of folded weights one bf16 launch at [B, H, W, 4 Wd] reads
+    from L2 (each weight slice once per CTA cluster)."""
+    return _library().fused_bottleneck_weight_bytes(B, H, W, Wd)
 
 
 def fused_bottleneck_cuda(x, w1, b1, w2, b2, w3, b3):

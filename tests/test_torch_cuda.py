@@ -21,10 +21,16 @@ def cuda():
 
 
 # f32: the same f32 cell on both sides, sums in another order: 1e-5.
-# bf16: outputs round to bf16 (half-ulp near 1 is 2e-3): 1e-2.
+# bf16: outputs round to bf16 (half-ulp near 1 is 2e-3): 1e-2. The kernel
+# is one persistent cooperative launch: a single step (T=1), one batch row,
+# a batch over the 64-row tile (B=70), one direction, and the widths the
+# register-resident W takes (H=32 leaves most warps without a K slice).
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 1e-2)])
-@pytest.mark.parametrize("T,D,B,H", [(8, 2, 3, 32), (16, 1, 70, 64)])
+@pytest.mark.parametrize("T,D,B,H", [(8, 2, 3, 32), (16, 1, 70, 64),
+                                     (1, 2, 4, 64), (12, 2, 1, 32),
+                                     (12, 2, 70, 64), (9, 1, 5, 512),
+                                     (20, 2, 64, 512)])
 def test_bilstm_kernel_matches_twin(cuda, dtype, tol, T, D, B, H):
     rng = np.random.default_rng(B)
     tdt = getattr(torch, dtype)
@@ -50,6 +56,18 @@ def test_bilstm_kernel_rejects_what_it_cannot_run(cuda):
     with pytest.raises(TypeError, match="float32 or both bfloat16"):
         cuda_lstm.bilstm_recurrence_cuda(xw.half(), torch.zeros(
             2, 12, 48, device=cuda).half())
+    # (H / 8) x D = 512 CTAs cannot all be resident at one per SM: the
+    # cooperative launch is refused and the wrapper raises, with no fallback
+    xw = torch.zeros(2, 4, 1, 4 * 1024, device=cuda, dtype=torch.bfloat16)
+    w = torch.zeros(4, 1024, 4 * 1024, device=cuda, dtype=torch.bfloat16)
+    before = cuda_lstm.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        cuda_lstm.bilstm_recurrence_cuda(xw, w)
+    assert cuda_lstm.launches == before
+    with pytest.raises(ValueError, match="at most"):
+        cuda_lstm.bilstm_recurrence_cuda(
+            torch.zeros(2, 1, 1, 4 * 1040, device=cuda),
+            torch.zeros(1, 1040, 4 * 1040, device=cuda))
 
 
 def _train_inputs(cuda, T, D, B, H, dtype, seed):
@@ -150,12 +168,20 @@ def _block_inputs(cuda, B, H, W, C, dtype, seed):
 # package's fused-block bar). bf16: m and m2 round to bf16 at the same
 # points, but a sum in another order can flip a rounding: 3e-2 relative,
 # the JAX package's bf16 bar. The shapes are tests/test_pallas_block.py's
-# plus ragged tiles (H, W not multiples of the tile).
+# plus the edges of the bf16 tile plans: ragged tiles (H, W not multiples
+# of the tile), W narrower than the tile (8 < 16), grids that are not a
+# multiple of the cluster (W=40 at width 256: 3 tiles of 16 in clusters of
+# 2; W=24 at width 512: 3 tiles of 8 in clusters of 4), and each resnet50
+# width (64-512) at a small batch.
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 3e-2)])
 @pytest.mark.parametrize("B,H,W,C", [(2, 16, 32, 64), (1, 64, 32, 64),
                                      (2, 32, 16, 256), (1, 16, 8, 2048),
-                                     (1, 13, 10, 64), (2, 9, 21, 128)])
+                                     (1, 13, 10, 64), (2, 9, 21, 128),
+                                     (2, 16, 8, 256), (1, 17, 23, 256),
+                                     (2, 11, 30, 512), (1, 9, 40, 1024),
+                                     (1, 7, 24, 2048), (2, 12, 32, 1024),
+                                     (2, 8, 16, 2048), (1, 20, 48, 768)])
 def test_fused_bottleneck_kernel_matches_twin(cuda, dtype, tol, B, H, W, C):
     from horizonnet_tpu_torch.ops import fused_block
 
@@ -181,3 +207,27 @@ def test_fused_bottleneck_kernel_rejects_what_it_cannot_run(cuda):
         fused_block.fused_bottleneck_cuda(x.half(), w1, b1, w2, b2, w3, b3)
     with pytest.raises(ValueError, match="CUDA tensors"):
         fused_block.fused_bottleneck_cuda(x, w1.cpu(), b1, w2, b2, w3, b3)
+    # bf16 widths over 512 have no tile plan: the wrapper raises instead of
+    # falling back to another kernel or the twin
+    args = _block_inputs(cuda, 1, 4, 4, 4 * 576, "bfloat16", 0)
+    before = fused_block.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_block.fused_bottleneck_cuda(*args)
+    assert fused_block.launches == before
+
+
+@pytest.mark.cuda
+def test_bilstm_back_to_back_on_one_stream(cuda):
+    """Two recurrences queued on one stream without a sync between them:
+    the second's counters and scratch start afresh."""
+    rng = np.random.default_rng(2)
+    f = lambda a: torch.from_numpy(a.astype(np.float32)).to(  # noqa: E731
+        cuda, torch.bfloat16)
+    a = [f(rng.normal(0, 1, (16, 2, 8, 4 * 128))) for _ in range(2)]
+    w = [f(rng.uniform(-1, 1, (2, 128, 4 * 128)) / np.sqrt(128))
+         for _ in range(2)]
+    got = [cuda_lstm.bilstm_recurrence_cuda(x, v) for x, v in zip(a, w)]
+    torch.cuda.synchronize()
+    for g, x, v in zip(got, a, w):
+        want = cuda_lstm.bilstm_recurrence_plain(x, v)
+        assert (g.float() - want.float()).abs().max().item() <= 1e-2

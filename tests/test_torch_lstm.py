@@ -94,3 +94,36 @@ def test_cpu_tensor_never_bumps_launch_counter():
         cuda_lstm.bilstm_recurrence_cuda(torch.from_numpy(xw),
                                          torch.from_numpy(w))
     assert cuda_lstm.launches == before
+
+
+# The bf16 kernel's split of f32 h into three bf16 terms is exact: hi takes
+# h's top 8 significand bits, mid the next 8 and lo the last 8. Magnitudes
+# from scale/16 to scale keep lo above bf16's smallest normal down to 1e-30.
+@pytest.mark.parametrize("scale", [1.0, 1e-10, 1e-20, 1e-30])
+def test_split_bf16x3_is_exact(scale):
+    rng = np.random.default_rng(6)
+    mag = np.exp(rng.uniform(np.log(1 / 16), 0, (64, 512)))
+    h = torch.from_numpy((np.where(rng.uniform(size=(64, 512)) < 0.5, -1, 1)
+                          * mag * scale).astype(np.float32))
+    hi, mid, lo = cuda_lstm.split_bf16x3(h)
+    assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+    total = hi.double() + mid.double() + lo.double()
+    assert torch.equal(total, h.double())
+
+
+# With a bf16 W each term's product is exact, so the three products summed
+# in f32 equal the f32 product W.float() h up to f32 summation (1e-6
+# relative to the largest entry; the kernel's products are the same).
+@pytest.mark.parametrize("B", [1, 64])
+def test_split_bf16x3_product_matches_f32(B):
+    rng = np.random.default_rng(B)
+    h = torch.from_numpy(rng.uniform(-1, 1, (B, 512)).astype(np.float32))
+    w = torch.from_numpy((rng.uniform(-1, 1, (512, 2048))
+                          / np.sqrt(512)).astype(np.float32)).bfloat16()
+    want = h.double() @ w.double()
+    got = sum(t.float() @ w.float() for t in cuda_lstm.split_bf16x3(h))
+    err = ((got.double() - want).abs().max() / want.abs().max()).item()
+    assert err <= 1e-6
+    # a single bf16 term (h rounded to bf16) is far off: the split matters
+    one = h.bfloat16().float() @ w.float()
+    assert ((one.double() - want).abs().max() / want.abs().max()).item() > 1e-4
