@@ -13,7 +13,10 @@ Phases; any failed check makes the script exit non-zero:
             a small shape (tol 1e-5) and bf16 at the main path's shape (K1
             at serving T=256, D=2, B=64, H=512; K2/K3 at training B=8),
             tol 1e-2 relative to the largest entry (the bf16 output
-            rounding: a one-ulp flip is 2^-7 of the value); the
+            rounding: a one-ulp flip is 2^-7 of the value); K1's bf16
+            output must also equal the twin's bit for bit on at least
+            99.98 % of its entries (its three-term products keep the f32
+            contract; products of one or two terms fall below); the
             autograd.Function's gradients against torch.autograd through
             the plain loop (f32, training shape, 1e-4 relative: a 256-step
             chain summed in another order). Times each kernel beside its
@@ -197,10 +200,14 @@ def phase_kernel(state):
     ys_k = cuda_lstm.bilstm_recurrence_cuda(xw, w)
     ys_p = cuda_lstm.bilstm_recurrence_plain(xw, w)
     errbf = (ys_k.float() - ys_p.float()).abs().max().item()
+    same = (ys_k == ys_p).float().mean().item()
     log(f"K1 bf16 [T={T},D={D},B={B},H={H}] max|kernel - twin| = "
-        f"{errbf:.3e} (tol 1e-2: bf16 output rounding)")
+        f"{errbf:.3e} (tol 1e-2: bf16 output rounding); {100 * same:.4f} % "
+        "of outputs equal the twin's bit for bit (at least 99.98 %)")
     check(bool(torch.isfinite(ys_k.float()).all()), "K1 bf16 output not finite")
     check(errbf <= 1e-2, f"K1 bf16 error {errbf} > 1e-2")
+    check(same >= 0.9998, f"K1 bf16 equals the twin on {same:.6f} of its "
+          "outputs, under 0.9998: its products lose the f32 contract")
 
     ms_k = cuda_ms(lambda: cuda_lstm.bilstm_recurrence_cuda(xw, w))
     ms_p = cuda_ms(lambda: cuda_lstm.bilstm_recurrence_plain(xw, w), reps=5)
@@ -268,14 +275,10 @@ def _k1_profile(xw, w):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                cuda_lstm.bilstm_recurrence_cuda(xw, w)
-            torch.cuda.synchronize()
-    except RuntimeError as e:
-        log(f"K1 profile: not measured ({e})")
-        return
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            cuda_lstm.bilstm_recurrence_cuda(xw, w)
+        torch.cuda.synchronize()
     n = sum(e.count for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and "recurrence" in e.key)
     log(f"K1 profile: {n} recurrence kernels in 3 calls")
@@ -943,19 +946,16 @@ def phase_train(state):
         f"{med[0]:.2f} ms, backward {med[1]:.2f} ms, optimizer "
         f"{med[2]:.2f} ms [{card}]")
 
-    from torch.profiler import ProfilerActivity, profile
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(3):
-                eng.step(x, y_bon, y_cor, gen)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3 / 3
-    except RuntimeError as e:
-        log(f"profiler: not measured ({e})")
-        return
     from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            eng.step(x, y_bon, y_cor, gen)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / 3
 
     # kernels only (CPU operators carry their kernels' time too)
     rows = [(e.self_device_time_total / 1e3 / 3, e.key)

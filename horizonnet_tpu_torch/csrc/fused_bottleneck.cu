@@ -1078,13 +1078,14 @@ int launch(const void* x, const void* w1t, const void* b1, const void* w2t,
 
 // The plan for width Wd: fn.template operator()<P>() of the one that takes
 // it, or `none` if no plan does.
+constexpr int kMaxWd = 512;  // the widest plan's width
 template <typename Fn, typename R>
 R with_plan(int Wd, Fn fn, R none) {
   const int kp = (Wd + 63) / 64 * 64;
   if (kp <= 64) return fn(P64());
   if (kp <= 128) return fn(P128());
   if (kp <= 256) return fn(P256());
-  if (kp <= 512) return fn(P512());
+  if (kp <= kMaxWd) return fn(P512());
   return none;
 }
 
@@ -1092,14 +1093,16 @@ R with_plan(int Wd, Fn fn, R none) {
 
 extern "C" {
 
-// Bytes of dynamic shared memory one CTA needs at width Wd (more than a
-// CTA has where no tile plan takes the width).
+// Bytes of dynamic shared memory one CTA needs at width Wd (0 for a bf16
+// width that no tile plan takes).
 size_t fused_bottleneck_smem_bytes(int Wd, int is_bf16) {
   if (!is_bf16) return fb::smem_bytes(Wd, fb::stages(Wd));
   return wg::with_plan(
-      Wd, [](auto p) { return (size_t)decltype(p)::SMEM; },
-      (size_t)fb::kSmemLimit + 1);
+      Wd, [](auto p) { return (size_t)decltype(p)::SMEM; }, (size_t)0);
 }
+
+// The widest bf16 width a tile plan takes.
+int fused_bottleneck_bf16_max_width() { return wg::kMaxWd; }
 
 // Weight bytes a bf16 launch reads from L2 (each slice once per cluster).
 size_t fused_bottleneck_weight_bytes(int B, int H, int W, int Wd) {

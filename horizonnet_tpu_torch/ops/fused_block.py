@@ -93,6 +93,8 @@ def _library():
     lib.fused_bottleneck_smem_bytes.restype = ctypes.c_size_t
     lib.fused_bottleneck_weight_bytes.argtypes = [ctypes.c_int] * 4
     lib.fused_bottleneck_weight_bytes.restype = ctypes.c_size_t
+    lib.fused_bottleneck_bf16_max_width.argtypes = []
+    lib.fused_bottleneck_bf16_max_width.restype = ctypes.c_int
     lib.fused_bottleneck_error_string.argtypes = [ctypes.c_int]
     lib.fused_bottleneck_error_string.restype = ctypes.c_char_p
     return lib
@@ -128,6 +130,9 @@ def fused_bottleneck_cuda(x, w1, b1, w2, b2, w3, b3):
                          "width that is a multiple of 16 and C = 4 * width")
     lib = _library()
     is_bf16 = int(x.dtype == torch.bfloat16)
+    if is_bf16 and Wd > lib.fused_bottleneck_bf16_max_width():
+        raise ValueError(f"no bf16 tile plan for width {Wd} (the widest is "
+                         f"{lib.fused_bottleneck_bf16_max_width()})")
     if lib.fused_bottleneck_smem_bytes(Wd, is_bf16) > _SMEM_LIMIT:
         raise ValueError(f"width {Wd} needs more shared memory than a CTA "
                          "has")

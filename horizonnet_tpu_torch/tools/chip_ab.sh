@@ -1,16 +1,17 @@
 #!/bin/bash
 # Parent-against-change comparison of the PyTorch port on one CUDA card.
 #
-#   bash tools/chip_ab.sh PARENT_DIR CHANGE_DIR [PHASES...]
+#   bash horizonnet_tpu_torch/tools/chip_ab.sh PARENT_DIR CHANGE_DIR [PHASES...]
 #
 # PARENT_DIR and CHANGE_DIR are unpacked trees (`git archive`) of the two
 # commits. Runs `python3 chip_smoke.py --phases PHASES` (default: kernel
 # flagship fused) from each tree in turns, parent, change, change, parent,
 # on the same card, and writes each run's log to
 # $AB_OUT/ab_<n>_<parent|change>.txt (AB_OUT defaults to build/ab_logs).
-# Then it compares the SASS of
-# csrc/bilstm_train.cu (K2/K3) built from both trees. Exits non-zero if a
-# run fails.
+# Then it compares the SASS of csrc/bilstm_train.cu (K2/K3) built from both
+# trees (sass_same.sh) and times K1 at batch 1, 8 and 64 through each tree
+# in the same turns (k1_sweep.py: a parent's chip_smoke.py may not time
+# the small batches). Exits non-zero if a run fails or the SASS differs.
 set -u
 parent=$(cd "$1" && pwd)
 change=$(cd "$2" && pwd)
@@ -32,21 +33,7 @@ for side in parent change change parent; do
   [ $r -eq 0 ] || rc=1
   grep -E "^K1 recurrence|^K4 bf16 \[|^K4 over|^flagship resnet50|^  *K1 bound|serving unfused" "$log"
 done
-nvcc=/usr/local/cuda/bin/nvcc
-for side in parent change; do
-  dir=${!side}
-  $nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-    -Xcompiler -fPIC -o "$out/k23_$side.so" \
-    "$dir/horizonnet_tpu_torch/csrc/bilstm_train.cu" &&
-    /usr/local/cuda/bin/cuobjdump -sass "$out/k23_$side.so" |
-    grep -vE "^\s*$|Fatbin|code for|arch =|host =|compile_size|identifier" \
-      > "$out/k23_$side.sass"
-done
-if cmp -s "$out/k23_parent.sass" "$out/k23_change.sass"; then
-  echo "bilstm_train.cu SASS: identical in both trees"
-else
-  echo "bilstm_train.cu SASS: differs"
-  rc=1
-fi
-rm -f "$out"/k23_*.so
+tools=$(cd "$(dirname "$0")" && pwd)
+bash "$tools/sass_same.sh" "$parent" "$change" bilstm_train.cu || rc=1
+python3 "$tools/k1_sweep.py" "$parent" "$change" "$change" "$parent" || rc=1
 exit $rc

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the PyTorch port's serving LSTM kernel (K1) at batch 1, 8 and 64.
 
-    python3 tools/k1_sweep.py TREE [TREE ...]
+    python3 horizonnet_tpu_torch/tools/k1_sweep.py TREE [TREE ...]
 
 TREE is a checkout (or `git archive`) of the repository; the kernel is
 built from and run through that tree's horizonnet_tpu_torch, one process

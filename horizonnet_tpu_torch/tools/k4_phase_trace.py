@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the bf16 fused bottleneck (K4) spends its time, phase by phase.
 
-    python3 tools/k4_phase_trace.py
+    python3 horizonnet_tpu_torch/tools/k4_phase_trace.py
 
 Writes an instrumented copy of horizonnet_tpu_torch/csrc/fused_bottleneck.cu
 to build/k4_trace/ (the first consumer thread of each CTA stamps
@@ -22,7 +22,8 @@ import sys
 import numpy as np
 import torch
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 sys.path.insert(0, REPO)
 from horizonnet_tpu_torch.ops import fused_block as fb  # noqa: E402
 
