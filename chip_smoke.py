@@ -16,14 +16,18 @@ Phases; any failed check makes the script exit non-zero:
             rounding: a one-ulp flip is 2^-7 of the value); K1's bf16
             output must also equal the twin's bit for bit on at least
             99.98 % of its entries (its three-term products keep the f32
-            contract; products of one or two terms fall below); the
-            autograd.Function's gradients against torch.autograd through
-            the plain loop (f32, training shape, 1e-4 relative: a 256-step
-            chain summed in another order). Times each kernel beside its
-            twin, its bound (from the shapes) and cuDNN's nn.LSTM on the
+            contract; products of one or two terms fall below), and at the
+            training shape K2's ys, gates and cs on at least 99.98 % and
+            K3's dxw on at least 99.97 %; the autograd.Function's
+            gradients against torch.autograd through the plain loop (f32,
+            training shape, 1e-4 relative: a 256-step chain summed in
+            another order). Times each kernel beside its twin, its bound
+            (from the shapes: three bf16 products at 989 TFLOP/s, and the
+            same as f32 FMAs at 67 TFLOP/s) and cuDNN's nn.LSTM on the
             same weights (K1: layer forward; K2: forward in training; K3:
-            backward). K1 is also timed at B=1 and B=8, and the profiler
-            must show one K1 kernel per call. K4: f32 at
+            backward). K1, K2 and K3 are also timed at B=1, 8 and 64, and
+            the profiler must show one kernel per K1, K2 and K3 call.
+            K4: f32 at
             tests/test_pallas_block.py's four shapes (2e-5 relative), bf16
             at 8 shapes at the edges of its tile plans and at the four
             resnet50 stage shapes at B=64 (3e-2 relative, the JAX
@@ -96,6 +100,11 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 FLAGSHIP_B = 64
+# Shares of K2's and K3's bf16 outputs equal to the twins' bit for bit at
+# the training shape, set from horizonnet_tpu_torch/tools/split_check.py
+# (three terms of the split reach them; two and one do not)
+K2_SAME_BAR = 0.9998
+K3_SAME_BAR = 0.9997
 # resnet50's identity bottlenecks per stage, and the stage shapes (NHWC) at
 # the flagship's batch of 64 and 512x1024 input
 RESNET50_IDENTITY = (2, 3, 5, 2)
@@ -224,7 +233,8 @@ def phase_kernel(state):
     log(f"K1 recurrence bf16 T={T} D={D} H={H}: B=1 {small[1]:.3f} ms, B=8 "
         f"{small[8]:.3f} ms, B=64 {ms_k:.3f} ms (CUDA events, median) "
         f"[{state['card']}]")
-    _k1_profile(xw, w)
+    _one_kernel_per_call("K1",
+                         lambda: cuda_lstm.bilstm_recurrence_cuda(xw, w))
 
     # One whole bidirectional layer (projection + recurrence) against
     # cuDNN's nn.LSTM on the same weights: the comparator, not a twin
@@ -268,21 +278,25 @@ def phase_kernel(state):
     phase_kernel_train(state, g)
 
 
-def _k1_profile(xw, w):
-    """One K1 kernel per bilstm_recurrence_cuda call, by the profiler."""
+def _one_kernel_per_call(name, fn):
+    """fn() runs exactly one kernel on the card, by the profiler: no launch
+    per step, and nothing else (memsets aside)."""
     import torch
-    from horizonnet_tpu_torch.ops import cuda_lstm
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(3):
-            cuda_lstm.bilstm_recurrence_cuda(xw, w)
+            fn()
         torch.cuda.synchronize()
-    n = sum(e.count for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and "recurrence" in e.key)
-    log(f"K1 profile: {n} recurrence kernels in 3 calls")
-    check(n == 3, f"K1 ran {n} kernels in 3 calls, not one per call")
+    kernels = {e.key[:60]: e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not e.key.startswith(("Memset", "Memcpy"))}
+    n = sum(kernels.values())
+    log(f"{name} profile: {n} kernels in 3 calls: {kernels}")
+    check(n == 3, f"{name} ran {n} kernels in 3 calls, not one per call")
 
 
 def phase_kernel_train(state, g):
@@ -323,6 +337,26 @@ def phase_kernel_train(state, g):
         check(all(r <= tol for r, _ in e3), f"K3 {name} error {e3} > {tol}")
         err2 = max(err2, *(a for _, a in e2))
         err3 = max(err3, *(a for _, a in e3))
+        if dtype == torch.bfloat16:
+            # the 1e-2 bar sees only the output rounding; bit equality with
+            # the twin is what shows the three-term products keep the f32
+            # contract (bars from horizonnet_tpu_torch/tools/split_check.py)
+            same2 = [(a == b).float().mean().item()
+                     for a, b in zip(fwd_k, fwd_p)]
+            same3 = (dxw_k == dxw_p).float().mean().item()
+            log(f"K2 bf16 training shape: (ys, gates, cs) "
+                f"{[f'{100 * v:.4f}' for v in same2]} % equal to the twin's "
+                f"bit for bit (at least {100 * K2_SAME_BAR:g} %); K3 dxw "
+                f"{100 * same3:.4f} % (at least {100 * K3_SAME_BAR:g} %)")
+            check(min(same2) >= K2_SAME_BAR, f"K2 bf16 equals the twin on "
+                  f"{same2} of its outputs: its products lose the f32 "
+                  "contract")
+            check(same3 >= K3_SAME_BAR, f"K3 bf16 equals the twin on "
+                  f"{same3} of its outputs: its products lose the f32 "
+                  "contract")
+            _one_kernel_per_call("K2", lambda: clt.train_fwd_cuda(xw, w))
+            _one_kernel_per_call("K3", lambda: clt.train_bwd_cuda(
+                gates, cs, dys, w))
 
     # the autograd.Function against torch.autograd through the plain loop
     xw, w, dys = inputs(256, 2, 8, 512, torch.float32)
@@ -339,11 +373,29 @@ def phase_kernel_train(state, g):
     check(all(r <= 1e-4 for r, _ in eg), f"Function grads off: {eg}")
 
     T, D, B, H, I = 256, 2, 8, 512, 1024
-    xw, w, dys = inputs(T, D, B, H, torch.bfloat16)
+    xw, w, dys = inputs(T, D, 64, H, torch.bfloat16)
+    ms2b, ms3b = {}, {}
+    for b in (1, 8, 64):
+        xs, ds = xw[:, :, :b].contiguous(), dys[:, :, :b].contiguous()
+        _, gates, cs = clt.train_fwd_cuda(xs, w)
+        ms2b[b] = cuda_ms(lambda: clt.train_fwd_cuda(xs, w))
+        ms3b[b] = cuda_ms(lambda: clt.train_bwd_cuda(gates, cs, ds, w))
+    xw, dys = xw[:, :, :B].contiguous(), dys[:, :, :B].contiguous()
     ys, gates, cs = clt.train_fwd_cuda(xw, w)
-    ms2 = cuda_ms(lambda: clt.train_fwd_cuda(xw, w))
+    ms2, ms3 = ms2b[B], ms3b[B]
+    # host time to enqueue one call, 20 calls queued without a sync: the
+    # train step's host-dispatch layer (a launch that waited for the card
+    # would take the kernel's time here)
+    host = []
+    for fn in (lambda: clt.train_fwd_cuda(xw, w),
+               lambda: clt.train_bwd_cuda(gates, cs, dys, w)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn()
+        host.append((time.perf_counter() - t0) / 20 * 1e3)
+        torch.cuda.synchronize()
     ms2p = cuda_ms(lambda: clt.train_fwd_plain(xw, w), reps=3)
-    ms3 = cuda_ms(lambda: clt.train_bwd_cuda(gates, cs, dys, w))
     ms3p = cuda_ms(lambda: clt.train_bwd_plain(gates, cs, dys, w), reps=3)
 
     # cuDNN's nn.LSTM on one bidirectional layer at the training shape,
@@ -380,6 +432,12 @@ def phase_kernel_train(state, g):
     log(f"K2 bf16 [T={T},D={D},B={B},H={H}]: kernel {ms2:.3f} ms, plain twin "
         f"{ms2p:.3f} ms; K3: kernel {ms3:.3f} ms, plain twin {ms3p:.3f} ms "
         f"(CUDA events, median) [{card}]")
+    log(f"K2/K3 bf16 T={T} D={D} H={H} by batch: K2 B=1 {ms2b[1]:.3f}, B=8 "
+        f"{ms2b[8]:.3f}, B=64 {ms2b[64]:.3f} ms; K3 B=1 {ms3b[1]:.3f}, B=8 "
+        f"{ms3b[8]:.3f}, B=64 {ms3b[64]:.3f} ms (CUDA events, median) "
+        f"[{card}]")
+    log(f"K2/K3 host time per call at B={B} (20 calls queued, no sync): K2 "
+        f"{host[0]:.3f} ms, K3 {host[1]:.3f} ms")
     log(f"bi-LSTM layer bf16 [T={T},B={B},I={I},H={H}] forward + backward: "
         f"port (projection + K2 + K3 + dW, f32 master weights) "
         f"{ms_port_fb:.3f} ms; cuDNN nn.LSTM {ms_cudnn_fb:.3f} ms (forward "
@@ -388,11 +446,17 @@ def phase_kernel_train(state, g):
     for name, ms, mp, lib, err, bwd in (
             ("bilstm_train_fwd", ms2, ms2p, ms_cudnn_f, err2, False),
             ("bilstm_bwd", ms3, ms3p, ms_cudnn_b, err3, True)):
+        # the kernels' route: three exact bf16 products on the tensor cores;
+        # beside it the bound of the same products as f32 CUDA-core FMAs
         nbytes, flops = lstm_bytes_flops(T, D, B, H, 2, residuals=True,
                                          backward=bwd)
-        bms, by = bound(flops, nbytes)
-        log(f"{name} bound: {bms:.3f} ms ({by}: {flops / 1e9:.2f} GFLOP, "
-            f"{nbytes / 1e6:.1f} MB); kernel at {100 * bms / ms:.1f} % of it")
+        bms, by = bound(3 * flops, nbytes, PEAK_BF16_FLOPS)
+        bms32, by32 = bound(flops, nbytes)
+        log(f"{name} bound: {bms:.3f} ms ({by}: 3 x {flops / 1e9:.2f} GFLOP "
+            f"at 989 TFLOP/s bf16, {nbytes / 1e6:.1f} MB at 3.35 TB/s); "
+            f"kernel at {100 * bms / ms:.1f} % of it. As f32 CUDA-core FMAs "
+            f"(67 TFLOP/s): {bms32:.3f} ms ({by32}), kernel at "
+            f"{100 * bms32 / ms:.1f} % of that")
         state["kernels"][name].update(max_abs_err=err, ms=ms, plain_ms=mp,
                                       bound_ms=bms, bound_by=by,
                                       library_ms=lib)

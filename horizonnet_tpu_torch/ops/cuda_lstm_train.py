@@ -20,6 +20,12 @@ ops/cuda_lstm.py, plus residuals):
   dW [D, H, 4H] = sum over (t, b) of h_{t-1} da_t, in f32, cast to
   w_hh_t's dtype (a torch.einsum, as JAX leaves it to XLA).
 
+Each kernel is one cooperative launch per recurrence whose CTAs ((H / 8, D)
+for K2, (H / 16, D) for K3) must all be resident at once; a launch the
+card refuses raises. In bf16 both run their products on the tensor cores
+with the f32 operand (h in K2, da in K3) split exactly into three bf16
+terms (``cuda_lstm.split_bf16x3``), which keeps the f32 contract.
+
 ``bilstm_recurrence_trainable`` launches the kernels for CUDA tensors and
 runs the twins for CPU tensors; there is no fallback from one to the other.
 """
@@ -32,9 +38,6 @@ import torch
 fwd_launches = 0
 #: Number of calls that launched K3 (one per backward recurrence).
 bwd_launches = 0
-
-_SMEM_LIMIT = 232448  # bytes of dynamic shared memory a Hopper CTA may use
-
 
 def _check_shapes(xw_like, w_hh_t):
     T, D, B, G = xw_like.shape
@@ -100,24 +103,28 @@ def weight_grad(ys, dxw, w_hh_t):
                         dxw.float()).to(w_hh_t.dtype)
 
 
-def _library():
-    from ._build import load_kernel_library
-
-    lib = load_kernel_library("bilstm_train")
-    lib.bilstm_train_fwd.argtypes = ([ctypes.c_void_p] * 7
+def bind(lib):
+    """Declare the C interface of a loaded ``bilstm_train`` library."""
+    lib.bilstm_train_fwd.argtypes = ([ctypes.c_void_p] * 8
                                      + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.bilstm_train_fwd.restype = ctypes.c_int
-    lib.bilstm_bwd.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+    lib.bilstm_bwd.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                                + [ctypes.c_void_p])
     lib.bilstm_bwd.restype = ctypes.c_int
-    for fn in (lib.bilstm_train_fwd_smem_bytes, lib.bilstm_bwd_smem_bytes):
+    for fn in (lib.bilstm_train_fwd_max_h, lib.bilstm_bwd_max_h):
         fn.argtypes = [ctypes.c_int]
-        fn.restype = ctypes.c_size_t
-    lib.bilstm_train_hidden_multiple.argtypes = []
-    lib.bilstm_train_hidden_multiple.restype = ctypes.c_int
+        fn.restype = ctypes.c_int
+    lib.bilstm_train_h_multiple.argtypes = []
+    lib.bilstm_train_h_multiple.restype = ctypes.c_int
     lib.bilstm_train_error_string.argtypes = [ctypes.c_int]
     lib.bilstm_train_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _library():
+    from ._build import load_kernel_library
+
+    return bind(load_kernel_library("bilstm_train"))
 
 
 def build():
@@ -137,13 +144,14 @@ def _check_tensors(tensors):
                         "float32 or all bfloat16")
 
 
-def _check_hidden(H, lib, smem_bytes):
-    m = lib.bilstm_train_hidden_multiple()
-    if H % m:
-        raise ValueError(f"hidden size {H} must be a multiple of {m}")
-    if smem_bytes(H) > _SMEM_LIMIT:
-        raise ValueError(f"hidden size {H} needs more shared memory than a "
-                         "CTA has")
+def _check_hidden(H, lib, max_h, is_bf16):
+    """Refuse, before launching, a hidden size the kernel does not take:
+    a multiple of the bf16 products' K slice, at most what W's slice fits
+    in (registers in bf16, the device's shared memory in f32)."""
+    m, top = lib.bilstm_train_h_multiple(), max_h(is_bf16)
+    if H % m or H > top:
+        raise ValueError(f"hidden size {H} must be a multiple of {m} and at "
+                         f"most {top}")
 
 
 def _raise_on(err, lib, what):
@@ -159,19 +167,22 @@ def train_fwd_cuda(xw, w_hh_t):
     T, D, B, H = _check_shapes(xw, w_hh_t)
     _check_tensors((xw, w_hh_t))
     lib = _library()
-    _check_hidden(H, lib, lib.bilstm_train_fwd_smem_bytes)
+    is_bf16 = int(xw.dtype == torch.bfloat16)
+    with torch.cuda.device(xw.device):
+        _check_hidden(H, lib, lib.bilstm_train_fwd_max_h, is_bf16)
     xw, w_hh_t = xw.contiguous(), w_hh_t.contiguous()
     new = lambda *s, dtype=xw.dtype: torch.empty(  # noqa: E731
         *s, dtype=dtype, device=xw.device)
     ys, gates, cs = new(T, D, B, H), new(T, D, B, 4 * H), new(T, D, B, H)
     h_buf = new(2, D, B, H, dtype=torch.float32)
     c_buf = new(D, B, H, dtype=torch.float32)
+    flags = new(D, dtype=torch.int32)
     stream = torch.cuda.current_stream(xw.device).cuda_stream
     with torch.cuda.device(xw.device):
         err = lib.bilstm_train_fwd(
             xw.data_ptr(), w_hh_t.data_ptr(), ys.data_ptr(), gates.data_ptr(),
-            cs.data_ptr(), h_buf.data_ptr(), c_buf.data_ptr(), T, D, B, H,
-            int(xw.dtype == torch.bfloat16), stream)
+            cs.data_ptr(), h_buf.data_ptr(), c_buf.data_ptr(),
+            flags.data_ptr(), T, D, B, H, is_bf16, stream)
     _raise_on(err, lib, "bilstm_train_fwd")
     fwd_launches += 1
     return ys, gates, cs
@@ -186,19 +197,21 @@ def train_bwd_cuda(gates, cs, dys, w_hh_t):
                          f"{(T, D, B, H)}")
     _check_tensors((gates, cs, dys, w_hh_t))
     lib = _library()
-    _check_hidden(H, lib, lib.bilstm_bwd_smem_bytes)
+    is_bf16 = int(gates.dtype == torch.bfloat16)
+    with torch.cuda.device(gates.device):
+        _check_hidden(H, lib, lib.bilstm_bwd_max_h, is_bf16)
     gates, cs, dys, w_hh_t = (t.contiguous() for t in (gates, cs, dys, w_hh_t))
     dxw = torch.empty_like(gates)
     da_buf = torch.empty(2, D, B, 4 * H, dtype=torch.float32,
                          device=gates.device)
     dc_buf = torch.empty(D, B, H, dtype=torch.float32, device=gates.device)
+    flags = torch.empty(D, dtype=torch.int32, device=gates.device)
     stream = torch.cuda.current_stream(gates.device).cuda_stream
     with torch.cuda.device(gates.device):
         err = lib.bilstm_bwd(
             gates.data_ptr(), cs.data_ptr(), dys.data_ptr(),
             w_hh_t.data_ptr(), dxw.data_ptr(), da_buf.data_ptr(),
-            dc_buf.data_ptr(), T, D, B, H,
-            int(gates.dtype == torch.bfloat16), stream)
+            dc_buf.data_ptr(), flags.data_ptr(), T, D, B, H, is_bf16, stream)
     _raise_on(err, lib, "bilstm_bwd")
     bwd_launches += 1
     return dxw

@@ -150,3 +150,30 @@ def test_cpu_tensors_never_bump_launch_counters():
     with pytest.raises(ValueError, match="CUDA tensors"):
         clt.train_fwd_cuda(torch.from_numpy(xw), torch.from_numpy(w))
     assert (clt.fwd_launches, clt.bwd_launches) == before
+
+
+# K3's bf16 carry dh = da @ W^T multiplies an f32 da by bf16 W on the tensor
+# cores as three exact bf16 products (cuda_lstm.split_bf16x3). Gradients
+# span many orders of magnitude, so da here is log-uniform from 1e-6 to 10
+# with random signs, over the 4H = 2048 contraction of the training shape:
+# the three products summed in f32 equal the f32 product to 1e-6 relative
+# to the largest entry, and the single term bf16(da) is far off.
+@pytest.mark.parametrize("B", [1, 8])
+def test_split_bf16x3_da_product_matches_f32(B):
+    from horizonnet_tpu_torch.ops.cuda_lstm import split_bf16x3
+
+    rng = np.random.default_rng(100 + B)
+    Hs = 512
+    da = (np.exp(rng.uniform(np.log(1e-6), np.log(10.0), (B, 4 * Hs)))
+          * np.where(rng.uniform(size=(B, 4 * Hs)) < 0.5, -1, 1))
+    da = torch.from_numpy(da.astype(np.float32))
+    w = torch.from_numpy((rng.uniform(-1, 1, (Hs, 4 * Hs)) / np.sqrt(Hs))
+                         .astype(np.float32)).bfloat16()
+    want = da.double() @ w.double().T
+    hi, mid, lo = split_bf16x3(da)
+    assert torch.equal(hi.double() + mid.double() + lo.double(), da.double())
+    got = sum(t.float() @ w.float().T for t in (hi, mid, lo))
+    scale = want.abs().max()
+    assert ((got.double() - want).abs().max() / scale).item() <= 1e-6
+    one = hi.float() @ w.float().T
+    assert ((one.double() - want).abs().max() / scale).item() > 1e-4
