@@ -1,24 +1,30 @@
 """Inference CLI: glob of aligned panos -> {z0, z1, uv} JSON per pano.
 
 Counterpart of horizonnet_tpu/cli/inference.py (reference inference.py:
-144-223), flag for flag, on the fused device path:
+144-223), flag for flag, plus ``--device`` (default cuda; a missing CUDA
+device is an error):
 
     python -m horizonnet_tpu_torch.cli.inference --pth model.ckpt \\
-        --img_glob 'panos/*.png' --output_dir out \\
-        --device_postproc [--force_cuboid] [--device cuda]
+        --img_glob 'panos/*.png' --output_dir out [--force_cuboid] \\
+        [--device_postproc] [--visualize] [--device cuda]
 
-With --force_cuboid the device fits a cuboid and only [B, 17] corners
-and z1 come back; without it the device computes the general-layout
-candidates and a worker thread runs the greedy wall commitment on them
-(postproc.finish_general_batch), as the JAX CLI does.
+``--pth`` takes a ``.ckpt`` of either package or a reference ``.pth``.
+By default each chunk of --batch_size panos runs the forward on the
+device and the host postprocess per pano (inference.py::inference, the
+JAX host path in float64); --visualize also writes ``<name>.raw.png``,
+the raw-output strip at half size. With --device_postproc the layout
+fit runs on the device: with --force_cuboid only [B, 17] corners and z1
+come back; without it the device computes the general-layout candidates
+and a worker thread runs the greedy wall commitment on them
+(postproc.finish_general_batch). --force_raw, --visualize, --min_v and
+--r overrides take the host path, with a warning, as the JAX CLI does.
 
 ``--lstm_impl``: ``pallas`` runs the CUDA kernel (csrc/bilstm_fwd.cu),
 ``scan`` the plain PyTorch loop, ``auto`` the kernel on a CUDA device.
 ``--s2d_stem`` is accepted and runs the standard stem: the space-to-depth
-stem is the same math rearranged for the TPU's matrix unit. Paths still
-to port raise NotImplementedError naming their ROADMAP item: the host
-postprocess (no --device_postproc, and --force_raw / --visualize /
---min_v / --r overrides), --quant_int8 and --profile_dir.
+stem is the same math rearranged for the TPU's matrix unit. Still to
+port, each raising NotImplementedError naming its ROADMAP item:
+--quant_int8 and --profile_dir.
 """
 
 import argparse
@@ -36,7 +42,7 @@ def main(argv=None):
     parser = argparse.ArgumentParser(
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     parser.add_argument("--pth", required=True,
-                        help="checkpoint (.ckpt of horizonnet_tpu)")
+                        help="checkpoint (.ckpt ours or reference .pth)")
     parser.add_argument("--img_glob", required=True,
                         help="quoted glob of VP-aligned input panos")
     parser.add_argument("--output_dir", required=True)
@@ -53,7 +59,10 @@ def main(argv=None):
                         help="fuse the Manhattan post-processing into the "
                              "device program (cuboid or general per "
                              "--force_cuboid); only the packed fit or "
-                             "candidates cross back per batch")
+                             "candidates cross back per batch. "
+                             "Incompatible with --force_raw/--visualize/"
+                             "--min_v/--r overrides (those take the host "
+                             "path)")
     parser.add_argument("--batch_size", default=4, type=int,
                         help="panos per device step")
     parser.add_argument("--wire", default="uint8",
@@ -78,11 +87,6 @@ def main(argv=None):
                              "device is an error")
     args = parser.parse_args(argv)
 
-    if not args.device_postproc or args.force_raw or args.visualize \
-            or args.min_v is not None or args.r != 0.05:
-        raise NotImplementedError(
-            "the host postprocess path (no --device_postproc, or "
-            "--force_raw/--visualize/--min_v/--r) is ROADMAP Queue 1 item 6")
     if args.quant_int8:
         raise NotImplementedError("--quant_int8 is ROADMAP Queue 1 item 7")
     if args.profile_dir:
@@ -91,10 +95,8 @@ def main(argv=None):
 
     import torch
 
-    from ..inference import InferenceEngine, resolve_device, serve_stream
-    from ..postproc import finish_general_batch, unpack_cuboid_outputs
+    from ..inference import resolve_device
     from ..train.checkpoint import load_trained_model
-    from ..utils.image import load_pano
 
     device = resolve_device(args.device)
     paths = sorted(glob.glob(args.img_glob))
@@ -108,14 +110,56 @@ def main(argv=None):
         args.pth, device=device,
         dtype=torch.bfloat16 if args.bf16 else torch.float32,
         lstm_impl=lstm_impl)
+    _serve(paths, args, model, state_dict, device)
+    return 0
+
+
+def _serve(paths, args, model, state_dict, device):
+    from ..inference import InferenceEngine, inference, serve_stream
+    from ..postproc import finish_general_batch, unpack_cuboid_outputs
+    from ..utils.image import load_pano
+
+    use_device_pp = (args.device_postproc and not args.force_raw
+                     and not args.visualize and args.min_v is None
+                     and args.r == 0.05)
+    if args.device_postproc and not use_device_pp:
+        print("[WARN] --device_postproc ignored: "
+              "--force_raw/--visualize/--min_v/--r take the host path",
+              file=sys.stderr)
+
+    chunks = [paths[i:i + args.batch_size]
+              for i in range(0, len(paths), args.batch_size)]
+
+    def write_results(chunk, results):
+        for path, (cor_id, z0, z1, vis) in zip(chunk, results):
+            k = os.path.split(path)[-1][:-4]
+            with open(os.path.join(args.output_dir, k + ".json"), "w") as f:
+                json.dump({"z0": float(z0), "z1": float(z1),
+                           "uv": [[float(u), float(v)] for u, v in cor_id]},
+                          f)
+            if vis is not None:
+                from PIL import Image
+                vh, vw = vis.shape[:2]
+                Image.fromarray(vis).resize((vw // 2, vh // 2),
+                                            Image.LANCZOS).save(
+                    os.path.join(args.output_dir, k + ".raw.png"))
+            print(k, flush=True)
+
+    if not use_device_pp:
+        for chunk in chunks:
+            x = np.stack([load_pano(p) for p in chunk])
+            x = x.astype(np.float32) / 255.0
+            write_results(chunk, inference(
+                model, state_dict, x, flip=args.flip, rotate=args.rotate,
+                visualize=args.visualize, force_cuboid=args.force_cuboid,
+                force_raw=args.force_raw, min_v=args.min_v, r=args.r))
+        return
+
     engine = InferenceEngine(model, state_dict, batch_size=args.batch_size,
                              flip=args.flip, rotate=args.rotate,
                              postproc="cuboid" if args.force_cuboid
                              else "general", input_format=args.wire,
                              device=device)
-
-    chunks = [paths[i:i + args.batch_size]
-              for i in range(0, len(paths), args.batch_size)]
 
     def packed_batches():
         """Lazy ingest, consumed by serve_stream: reading and packing the
@@ -135,20 +179,14 @@ def main(argv=None):
 
     def finish(outs):
         if not args.force_cuboid:
-            return finish_general_batch(outs)
+            return [(c, z0, z1, None)
+                    for c, z0, z1 in finish_general_batch(outs)]
         cid, z1 = unpack_cuboid_outputs(outs)
-        return [(cid[b], 50.0, float(z1[b])) for b in range(len(cid))]
+        return [(cid[b], 50.0, float(z1[b]), None) for b in range(len(cid))]
 
     for chunk, results in zip(chunks, serve_stream(
             engine, packed_batches(), depth=3, finish=finish)):
-        for path, (cor_id, z0, z1) in zip(chunk, results):
-            k = os.path.split(path)[-1][:-4]
-            with open(os.path.join(args.output_dir, k + ".json"), "w") as f:
-                json.dump({"z0": float(z0), "z1": float(z1),
-                           "uv": [[float(u), float(v)] for u, v in cor_id]},
-                          f)
-            print(k, flush=True)
-    return 0
+        write_results(chunk, results[:len(chunk)])
 
 
 if __name__ == "__main__":

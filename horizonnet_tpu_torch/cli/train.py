@@ -4,25 +4,27 @@ Counterpart of horizonnet_tpu/cli/train.py, flag for flag, plus
 ``--device`` (default cuda; a missing CUDA device is an error):
 
     python -m horizonnet_tpu_torch.cli.train --id run1 \\
-        --train_root_dir data/train --valid_root_dir '' \\
+        --train_root_dir data/train --valid_root_dir data/valid \\
         --lstm_impl pallas_train --bf16 [--device cuda]
 
 Same loop: per-update warmup-poly learning rate, an optional second "aug"
 dataset filling half of each batch, per-epoch data order, augmentation
 draws and dropout generator from (seed, epoch), so a --resume'd run sees
 the batches of an unbroken one, a prefetch thread that builds the next
-batch while the current step trains, and model checkpoints every
---save_every epochs.
+batch while the current step trains, per-epoch validation (``validate``:
+losses and the true 2D/3D IoU, rmse and delta_1 of the raw-polygon
+postprocess), ``checkpoint.ckpt`` with the best 3DIoU (and
+``best_model_<epoch>.ckpt`` when it improves), which --resume reads, and
+model checkpoints every --save_every epochs. ``--valid_root_dir ''``
+trains without validation, and then writes no checkpoint.ckpt.
 
 ``--lstm_impl``: ``pallas_train`` runs the CUDA pair K2/K3
-(csrc/bilstm_train.cu), ``scan`` autograd through the plain loop.
-``--s2d_stem`` is accepted and runs the standard stem (the same math
-rearranged for the TPU's matrix unit). Still to port, each raising
-NotImplementedError: validation (a non-empty --valid_root_dir; it needs
-the host raw-polygon postprocess and evals, ROADMAP Queue 1 items 6 and
-11), and with it the checkpoint.ckpt that --resume reads, which the JAX
-CLI writes only after validation; --seam_pool and the densenet encoders
-(item 7); --n_model > 1 (item 9).
+(csrc/bilstm_train.cu) in training and K1 in the validation forward (the
+JAX model's eval mode takes the serving kernel), ``scan`` autograd
+through the plain loop. ``--s2d_stem`` is accepted and runs the standard
+stem (the same math rearranged for the TPU's matrix unit). Still to
+port, each raising NotImplementedError: --seam_pool and the densenet
+encoders (ROADMAP Queue 1 item 7); --n_model > 1 (item 9).
 """
 
 import argparse
@@ -55,8 +57,7 @@ def build_argparser():
     parser.add_argument("--train_aug_root_dir", default=None)
     parser.add_argument("--valid_root_dir",
                         default="data/layoutnet_dataset/valid",
-                        help="'' disables validation (validation itself is "
-                             "still to port)")
+                        help="'' disables validation")
     parser.add_argument("--no_flip", action="store_true")
     parser.add_argument("--no_rotate", action="store_true")
     parser.add_argument("--no_gamma", action="store_true")
@@ -111,13 +112,81 @@ def epoch_seed(seed, epoch):
         1, np.uint64)[0] >> 1)
 
 
+def validate(engine, dataset, batch_size):
+    """One validation pass, as the JAX CLI's (horizonnet_tpu/cli/train.py:
+    272-349): the forward batched at ``batch_size`` through the fixed-batch
+    InferenceEngine ``engine`` (the tail chunk padded with repeats), then
+    per sample on the host the boundary L1 and the corner BCE (from the
+    sigmoid probabilities, clipped to [1e-7, 1 - 1e-7]) and the general
+    metrics of postprocess(force_raw=True), scaled by [1024, 512], against
+    the ground truth. ``dataset`` yields (img, y_bon, y_cor, gt_cor)
+    (return_cor=True). A sample whose forward or postprocess fails gets
+    placeholder metrics, and each chunk that had one prints a [WARN] line
+    (so, as in the JAX CLI, a width other than postprocess's 1024 gives
+    placeholders). Returns the means over the dataset of {"bon", "cor",
+    "total", "2DIoU", "3DIoU", "rmse", "delta_1"}."""
+    from ..evals import new_general_losses, test_general
+    from ..inference import postprocess
+
+    def fetch(outs):
+        return [o.float().cpu().numpy() for o in outs]
+
+    valid_loss = {}
+    bsv = max(1, batch_size)
+    eps = 1e-7
+    for j0 in range(0, len(dataset), bsv):
+        samples = [dataset[j]
+                   for j in range(j0, min(j0 + bsv, len(dataset)))]
+        nb = len(samples)
+        # fixed-batch engine: pad the tail chunk with repeats
+        xb = np.stack([s[0] for s in samples] + [samples[-1][0]] * (bsv - nb))
+        try:
+            vb_all, vc_all = fetch(engine(xb))
+            vc_all = np.clip(vc_all, eps, 1 - eps)
+        except Exception:
+            vb_all = None
+        n_placeheld = 0
+        for i in range(nb):
+            img, y_bon, y_cor, gt_cor = samples[i]
+            true_eval = new_general_losses()
+            try:
+                if vb_all is None:
+                    # the chunk's forward failed: retry this sample alone,
+                    # so one failure does not zero a whole chunk's metrics
+                    x1 = np.broadcast_to(img, (bsv, *img.shape))
+                    vb1, vc1 = fetch(engine(np.ascontiguousarray(x1)))
+                    vb = vb1[0]
+                    vp = np.clip(vc1[0], eps, 1 - eps)
+                else:
+                    vb, vp = vb_all[i], vc_all[i]
+                # BCE from the sigmoid probabilities is BCE with logits
+                bon_l = float(np.abs(vb - y_bon).mean())
+                cor_l = float(-(y_cor * np.log(vp) +
+                                (1 - y_cor) * np.log(1 - vp)).mean())
+                losses = {"bon": bon_l, "cor": cor_l, "total": bon_l + cor_l}
+                dt_cor_id, _, _ = postprocess(vb, vp[0], force_raw=True)
+                dt_cor_id = dt_cor_id * [1024, 512]
+            except Exception:
+                n_placeheld += 1
+                losses = {"bon": 0.0, "cor": 0.0, "total": 0.0}
+                dt_cor_id = np.array([
+                    [k // 2 * 1024, 256 - ((k % 2) * 2 - 1) * 120]
+                    for k in range(8)])
+            test_general(dt_cor_id, gt_cor, 1024, 512, true_eval)
+            for m in ("2DIoU", "3DIoU", "rmse", "delta_1"):
+                vals = true_eval["overall"][m]
+                losses[m] = float(vals[0]) if vals else 0.0
+            for k, v in losses.items():
+                valid_loss[k] = valid_loss.get(k, 0) + v
+        if n_placeheld:
+            print(f"[WARN] validation: {n_placeheld}/{nb} samples in chunk "
+                  f"{j0 // bsv} fell back to placeholder metrics after "
+                  "forward failure", file=sys.stderr)
+    return {k: v / len(dataset) for k, v in valid_loss.items()}
+
+
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    if args.valid_root_dir:
-        raise NotImplementedError(
-            "validation (--valid_root_dir) needs the host raw-polygon "
-            "postprocess and evals, ROADMAP Queue 1 items 6 and 11; pass "
-            "--valid_root_dir '' to train without it")
     if args.seam_pool:
         raise NotImplementedError("--seam_pool is ROADMAP Queue 1 item 7")
     if args.n_model > 1:
@@ -127,10 +196,10 @@ def main(argv=None):
     import torch
 
     from ..data.dataset import PanoCorBonDataset, make_training_batch
-    from ..inference import resolve_device
+    from ..inference import InferenceEngine, resolve_device
     from ..models import build_model
     from ..train.checkpoint import (load_checkpoint, load_trained_model,
-                                    save_model)
+                                    save_checkpoint, save_model)
     from ..train.engine import TrainEngine
     from ..train.schedule import warmup_poly_schedule
     from ..train.step import (create_train_state, encoder_freeze_mask,
@@ -146,6 +215,8 @@ def main(argv=None):
     dataset_aug = (PanoCorBonDataset(args.train_aug_root_dir, wire=args.wire,
                                      **aug_flags)
                    if args.train_aug_root_dir else None)
+    dataset_valid = (PanoCorBonDataset(args.valid_root_dir, return_cor=True)
+                     if args.valid_root_dir else None)
     print(f"training dataset contains {len(dataset_train)} images")
     H, W = dataset_train.load_raw(0)[0].shape[:2]
 
@@ -183,7 +254,7 @@ def main(argv=None):
                         args.weight_decay, mask)
     state = create_train_state(model, tx)
 
-    start_epoch = 1
+    start_epoch, resume_best = 1, 0.0
     if args.resume:
         rp = args.resume
         if os.path.isdir(rp):
@@ -195,8 +266,9 @@ def main(argv=None):
             raise ValueError(f"--resume checkpoint was trained with {kw}, "
                              "flags disagree")
         start_epoch = int(header["epoch"]) + 1
+        resume_best = float(header["best_valid_score"])
         print(f"Resumed from {rp}: epoch {header['epoch']}, step "
-              f"{state.step}, best {float(header['best_valid_score']):.4f}")
+              f"{state.step}, best {resume_best:.4f}")
 
     engine = TrainEngine(model, state, batch_size=bs_main + bs_aug, H=H, W=W,
                          device=device)
@@ -228,7 +300,9 @@ def main(argv=None):
             y_cor = np.concatenate([y_cor, ca], 0)
         return x, y_bon, y_cor
 
+    best_valid_score = resume_best
     cur_iter = (start_epoch - 1) * steps_per_epoch
+    valid_engine = None  # built lazily; weights swapped in each epoch
     try:
         for epoch in range(start_epoch, args.epochs + 1):
             ep_rng = np.random.default_rng([args.seed, epoch])
@@ -255,6 +329,30 @@ def main(argv=None):
                     for k, v in metrics.items():
                         tb.add_scalar(f"train/{k}", float(v), cur_iter)
                     tb.add_scalar("train/lr", schedule(cur_iter), cur_iter)
+
+            if dataset_valid is not None:
+                weights = model.state_dict()
+                if valid_engine is None:
+                    valid_engine = InferenceEngine(
+                        model, weights, H=H, W=W, device=device,
+                        batch_size=max(1, args.batch_size_valid))
+                else:
+                    valid_engine.update_variables(weights)
+                valid_loss = validate(valid_engine, dataset_valid,
+                                      args.batch_size_valid)
+                if tb is not None:
+                    for k, v in valid_loss.items():
+                        tb.add_scalar(f"valid/{k}", v, epoch)
+                now_score = valid_loss["3DIoU"]
+                print(f"Ep{epoch:3d} {now_score:.4f} vs. Best "
+                      f"{best_valid_score:.4f}", flush=True)
+                is_best = now_score > best_valid_score
+                if is_best:
+                    best_valid_score = now_score
+                save_checkpoint(os.path.join(args.ckpt, args.id),
+                                engine.host_state(), backbone, use_rnn,
+                                epoch, best_valid_score, is_best,
+                                args=vars(args))
 
             if epoch % args.save_every == 0:
                 save_model(os.path.join(args.ckpt, args.id,

@@ -1,21 +1,33 @@
-"""Serving engine: wire decode + batched TTA forward + fused layout fit.
+"""Inference: wire decode + batched TTA forward + layout fit.
 
-Counterpart of horizonnet_tpu/inference.py's InferenceEngine and
-serve_stream (reference inference.py:21-141). One engine serves one fixed
-config (batch, H, W, TTA, wire format, postproc) on one device: ``put``
-uploads a host batch, ``run`` queues decode, forward and postprocess on
-the device and returns device tensors without waiting, so the host can
-prepare the next batch while the device works.
+Counterpart of horizonnet_tpu/inference.py (reference inference.py:
+21-141). One ``InferenceEngine`` serves one fixed config (batch, H, W,
+TTA, wire format, postproc) on one device: ``put`` uploads a host batch,
+``run`` queues decode, forward and the fused fit on the device and
+returns device tensors without waiting, so the host can prepare the next
+batch while the device works; ``serve_stream`` pipelines it.
+
+The reference-compatible path is ``inference``: the forward on the
+device through a cached engine (``net_forward``), then the host
+``postprocess`` per pano in float64 numpy, the JAX host path function
+for function (the general-layout fit always finishes on the host).
 """
+
+import sys
+from collections import OrderedDict
 
 import numpy as np
 import torch
 
+from .geometry.equirect_host import infer_coory, refine_by_fix_z
+from .geometry.polygon import polygon_is_valid
 from .ops import dct as _dct
+from .ops.filters import find_peaks_np
 from .ops.yuv import unpack_yuv420_to_rgb
 from .postproc.device import (pack_cuboid_outputs, pack_general_outputs,
                               postprocess_cuboid_batch,
                               postprocess_general_batch)
+from .postproc.manhattan import gen_ww
 
 INPUT_FORMATS = ("float", "uint8", "yuv420", "dct", "dct4")
 
@@ -131,7 +143,10 @@ class InferenceEngine:
     @torch.no_grad()
     def run(self, x_dev):
         """Queue the whole program on an uploaded batch; returns device
-        tensors without waiting for them."""
+        tensors without waiting for them. The model runs in eval mode,
+        also when a trainer that shares it (the train CLI's validation)
+        left it in train mode."""
+        self.model.eval()
         bon, cor = tta_forward(self.model, self._decode(x_dev), self.flip,
                                self.rotate)
         if self.postproc == "cuboid":
@@ -178,3 +193,116 @@ def serve_stream(engine, batches, depth=3, finish=None, workers=1):
                 yield q.popleft().result()
         while q:
             yield q.popleft().result()
+
+
+# Engine cache of net_forward / inference. Entries hold strong references
+# to their (model, state_dict) key objects: the key uses id(), and CPython
+# reuses a freed object's id, so without the pinned references new weights
+# at a recycled address would hit a stale engine. A bounded LRU, so that
+# swapped-out configs release their engines.
+_ENGINE_CACHE = OrderedDict()
+_ENGINE_CACHE_MAX = 4
+
+
+def _get_engine(model, state_dict, B, H, W, flip, rotate):
+    key = (id(model), id(state_dict), B, H, W, bool(flip), tuple(rotate))
+    hit = _ENGINE_CACHE.get(key)
+    if hit is not None:
+        _ENGINE_CACHE.move_to_end(key)
+        return hit[0]
+    device = next(model.parameters()).device
+    eng = InferenceEngine(model, state_dict, B, H, W, flip, rotate,
+                          device=device)
+    _ENGINE_CACHE[key] = (eng, model, state_dict)
+    while len(_ENGINE_CACHE) > _ENGINE_CACHE_MAX:
+        _ENGINE_CACHE.popitem(last=False)
+    return eng
+
+
+def net_forward(model, state_dict, x, flip=False, rotate=()):
+    """TTA forward on the model's device; x numpy [B, H, W, 3] in [0, 1].
+    Returns (bon [B, 2, W], cor_prob [B, 1, W]) as device tensors."""
+    x = np.asarray(x)
+    B, H, W, _ = x.shape
+    return _get_engine(model, state_dict, B, H, W, flip, rotate)(x)
+
+
+def postprocess(y_bon_, y_cor_, H=512, W=1024, force_cuboid=False,
+                force_raw=False, min_v=None, r=0.05):
+    """Host post-processing of one pano's raw outputs -> corner list.
+
+    y_bon_: [2, W] boundary angles (radians); y_cor_: [W] corner
+    probability. Returns (cor_id [(2N, 2) normalized uv], z0, z1).
+    float64 numpy, as the JAX host path. Ref: inference.py:90-141.
+    """
+    y_bon_ = np.asarray(y_bon_, np.float64)
+    y_cor_ = np.asarray(y_cor_, np.float64)
+
+    y_bon_ = (y_bon_ / np.pi + 0.5) * H - 0.5
+    y_bon_[0] = np.clip(y_bon_[0], 1, H / 2 - 1)
+    y_bon_[1] = np.clip(y_bon_[1], H / 2 + 1, H - 2)
+
+    z0 = 50.0
+    _, z1 = refine_by_fix_z(y_bon_[0], y_bon_[1], z0, coorH=H)
+
+    if force_raw:
+        # the raw per-column ceiling polygon (train-time validation)
+        cor = np.stack([np.arange(W), y_bon_[0]], 1)
+    else:
+        if min_v is None:
+            min_v = 0 if force_cuboid else 0.05
+        r_px = int(round(W * r / 2))
+        N = 4 if force_cuboid else None
+        xs_ = find_peaks_np(y_cor_, r=r_px, min_v=min_v, N=N)[0]
+
+        cor, walls = gen_ww(xs_, y_bon_[0], z0, coorW=W, coorH=H,
+                            tol=abs(0.16 * z1 / 1.6),
+                            force_cuboid=force_cuboid)
+        if not force_cuboid:
+            # a self-intersecting general layout falls back to a cuboid
+            xy2d = np.zeros((len(walls), 2), np.float32)
+            for i in range(len(walls)):
+                xy2d[i, walls[i].axis] = walls[i].value
+                xy2d[i, walls[i - 1].axis] = walls[i - 1].value
+            if not polygon_is_valid(xy2d):
+                print("Fail to generate valid general layout!! "
+                      "Generate cuboid as fallback.", file=sys.stderr)
+                xs_ = find_peaks_np(y_cor_, r=r_px, min_v=0, N=4)[0]
+                cor, walls = gen_ww(xs_, y_bon_[0], z0, coorW=W, coorH=H,
+                                    tol=abs(0.16 * z1 / 1.6),
+                                    force_cuboid=True)
+
+    # the floor row of every corner from its ceiling row
+    cor = np.hstack([cor, infer_coory(cor[:, 1], z1 - z0, z0,
+                                      coorH=H)[:, None]])
+
+    cor_id = np.zeros((len(cor) * 2, 2), np.float32)
+    for j in range(len(cor)):
+        cor_id[j * 2] = cor[j, 0], cor[j, 1]
+        cor_id[j * 2 + 1] = cor[j, 0], cor[j, 2]
+    cor_id[:, 0] /= W
+    cor_id[:, 1] /= H
+    return cor_id, z0, float(z1)
+
+
+def inference(model, state_dict, x, flip=False, rotate=(), visualize=False,
+              force_cuboid=False, force_raw=False, min_v=None, r=0.05):
+    """Reference-compatible batched inference. x: [B, H, W, 3] in [0, 1].
+    Returns a list of (cor_id, z0, z1, vis_out) per pano (the reference
+    takes one pano at a time)."""
+    x = np.asarray(x, np.float32)
+    B, H, W, _ = x.shape
+    bon, cor = net_forward(model, state_dict, x, flip, rotate)
+    bon = bon.cpu().numpy()
+    cor = cor.cpu().numpy()
+
+    results = []
+    for b in range(B):
+        vis_out = None
+        if visualize:
+            from .viewer.visualize import visualize_a_data
+            vis_out = visualize_a_data(x[b], bon[b], cor[b, 0])
+        cor_id, z0, z1 = postprocess(bon[b], cor[b, 0], H, W, force_cuboid,
+                                     force_raw, min_v, r)
+        results.append((cor_id, z0, z1, vis_out))
+    return results

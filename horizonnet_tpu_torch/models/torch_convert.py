@@ -9,6 +9,11 @@ running_mean/running_var (num_batches_tracked 0); LSTM ``l{k}_w_ih/w_hh/b``
 bias_hh = 0. Every leaf of the variables is consumed; an unknown one
 raises. ``state_dict_to_variables`` goes back, so the port writes the JAX
 package's ``.ckpt`` trees (train/checkpoint.py).
+
+``load_torch_checkpoint`` reads the reference's own ``.pth`` files
+(horizonnet_tpu/models/torch_convert.py:31-52) and
+``match_reference_keys`` maps their keys onto the port's, which already
+are the reference's.
 """
 
 import numpy as np
@@ -191,3 +196,56 @@ def state_dict_to_variables(state_dict):
         if rnn:
             raise KeyError(f"bi_rnn: unused keys {sorted(rnn)}")
     return {"params": params, "batch_stats": stats}
+
+
+def load_torch_checkpoint(path):
+    """A reference .pth -> (state_dict of CPU tensors, kwargs).
+
+    Three formats are in the wild: the self-describing {args, kwargs,
+    state_dict} (misc/utils.py:49-58); the training checkpoint.pth.tar
+    (train.py:33-37), with the backbone at the top level and no kwargs;
+    and a bare state_dict (kwargs {}). DataParallel's ``module.`` prefix
+    is stripped. The file is read with ``torch.load(weights_only=False)``,
+    as the JAX package reads it, because the self-describing format
+    pickles the training args: load only checkpoints you trust.
+    """
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    if "state_dict" in ckpt:
+        sd = ckpt["state_dict"]
+        kwargs = dict(ckpt.get("kwargs", {}))
+        if "backbone" not in kwargs and "backbone" in ckpt:
+            kwargs["backbone"] = ckpt["backbone"]
+        if sd and all(k.startswith("module.") for k in sd):
+            sd = {k[len("module."):]: v for k, v in sd.items()}
+    else:
+        sd, kwargs = ckpt, {}
+    return {k: torch.as_tensor(v) for k, v in sd.items()}, kwargs
+
+
+def match_reference_keys(sd, keys):
+    """Rename a reference state_dict onto the port's state_dict ``keys``.
+
+    The reference wraps each width-padded conv in Sequential(LR_PAD,
+    conv), so its keys carry a ``.1`` infix (``encoder.conv1.1.weight``),
+    as the port's do; a state_dict saved without the wrapper lacks it,
+    and either form is taken (the JAX package's ``_SD.get``). A missing
+    ``num_batches_tracked`` counts 0 (nothing reads it). A key that
+    matches none of ``keys`` raises.
+    """
+    out, used = {}, set()
+    for k in keys:
+        base, leaf = k.rsplit(".", 1)
+        bare = f"{base[:-2]}.{leaf}" if base.endswith(".1") else None
+        for cand in (k, bare):
+            if cand is not None and cand in sd:
+                out[k] = sd[cand]
+                used.add(cand)
+                break
+        else:
+            if leaf == "num_batches_tracked":
+                out[k] = torch.tensor(0)
+    unused = sorted(set(sd) - used)
+    if unused:
+        raise KeyError(f"state_dict keys the model does not have: "
+                       f"{unused[:8]}")
+    return out

@@ -243,25 +243,33 @@ def load_trained_model(path, *, device, dtype=None, lstm_impl="kernel",
                        **build_kw):
     """Returns (model, state_dict): the model built on ``device`` with the
     checkpoint's weights loaded, and the state_dict (CPU tensors).
+    ``path`` is a ``.ckpt`` of either package or, told apart by the
+    magic bytes as horizonnet_tpu/train/checkpoint.py:65-74 does, a
+    reference ``.pth`` (models/torch_convert.py::load_torch_checkpoint;
+    resnet50 with the RNN unless it says otherwise; its nonzero bias_hh
+    folds into bias_ih at load, models/horizonnet.py::BiLSTM).
     ``build_kw`` go to models.build_model (a training model's
     ``param_dtype``, ``bn_momentum``)."""
 
     from ..models.registry import build_model
-    from ..models.torch_convert import variables_to_state_dict
+    from ..models import torch_convert
 
     with open(path, "rb") as f:
-        if f.read(8) != _MAGIC:
-            raise NotImplementedError(
-                f"{path}: reference .pth checkpoints load through "
-                "load_state_dict once ROADMAP Queue 1 item 6 lands")
-    header, payload = read_checkpoint(path)
-    kw = header["kwargs"]
-    sd = variables_to_state_dict(
-        {"params": _upcast(payload["params"]),
-         "batch_stats": _upcast(payload.get("batch_stats", {}))})
-    model = build_model(kw["backbone"], kw["use_rnn"], device=device,
+        is_ckpt = f.read(8) == _MAGIC
+    if is_ckpt:
+        header, payload = read_checkpoint(path)
+        kw = header["kwargs"]
+        sd = torch_convert.variables_to_state_dict(
+            {"params": _upcast(payload["params"]),
+             "batch_stats": _upcast(payload.get("batch_stats", {}))})
+    else:
+        sd, kw = torch_convert.load_torch_checkpoint(path)
+    model = build_model(kw.get("backbone", "resnet50"),
+                        kw.get("use_rnn", True), device=device,
                         dtype=dtype or torch.float32, lstm_impl=lstm_impl,
                         **build_kw)
+    if not is_ckpt:
+        sd = torch_convert.match_reference_keys(sd, model.state_dict().keys())
     model.load_state_dict(sd)
     return model, sd
 

@@ -214,9 +214,6 @@ def test_cli_golden(golden, tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    ([], "host postprocess"),
-    (["--device_postproc", "--force_cuboid", "--visualize"],
-     "host postprocess"),
     (["--device_postproc", "--profile_dir", "trace"], "item 11"),
     (["--device_postproc", "--force_cuboid", "--quant_int8"], "item 7"),
 ])

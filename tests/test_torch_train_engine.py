@@ -206,7 +206,6 @@ def test_cli_trains_and_writes_epoch_checkpoints(tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--valid_root_dir", "some/valid"], "items 6 and 11"),
     (["--valid_root_dir", "", "--seam_pool"], "item 7"),
     (["--valid_root_dir", "", "--n_model", "2"], "item 9"),
     (["--valid_root_dir", "", "--backbone", "densenet121"], "item 7"),
