@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases kernel fused general     # K4, general
     python3 chip_smoke.py --phases host dynamics train_cli  # host path,
                                                             # validation
+    python3 chip_smoke.py --phases kernel densenet quant    # model options
 
 Phases; any failed check makes the script exit non-zero:
   kernel    build K1 (csrc/bilstm_fwd.cu), the training pair K2/K3
@@ -104,10 +105,36 @@ Phases; any failed check makes the script exit non-zero:
             test_general, one pano a forward through K1) reach
             DYNAMICS_BAR; the train CLI's validate() on the same rooms
             agrees within 1e-3, without placeholders.
+  densenet  densenet121_rnn in the flagship's configuration (bf16, batch
+            64, dct4, cuboid, K1) in turns with the resnet50 flagship:
+            serving and device panos/s, K1 launched twice a forward, the
+            profiler's top kernels; each of densenet121/169/161/201 at B=1,
+            f32, TF32 off, randomized batch norm: bon/cor on the card
+            within 2e-4 (relative to max(1, |x|)) of the same model's
+            forward on the CPU; densenet121 training in the train phase's
+            configuration (batch 8, kernel_train, Adam), 3 warm-up and 10
+            timed steps: finite and falling losses, K2/K3 launched, ms a
+            step, panos/s, peak memory.
+  quant     resnet50_rnn with the int8 encoder (quant_int8, the same
+            random float weights folded by quantize_state_dict) in the
+            flagship's configuration, in turns with the bf16 flagship:
+            serving and device panos/s, K1 launched twice a forward, the
+            profiler's top kernels; one QuantConvBN at the stem (7x7/2,
+            3->64, 512x1024) and at stage 1's 3x3 (64->64, 128x256): its
+            int32 sums on the card equal the CPU's bit for bit (8 panos),
+            and at B=64 in bf16 it is timed beside WrapConv + BatchNorm2d;
+            WrapConv with and without seam_fix at those shapes, timed, the
+            outputs equal bit for bit; the golden checkpoint quantized:
+            int8 corners within 4 px of the float ones and z1 within 5 % +
+            1 (JAX's bar, tests/test_quant.py); the inference CLI with
+            --quant_int8 --force_cuboid, host path and --device_postproc,
+            within 4 px of golden_outputs.npz.
 
 Before the last line it prints the card's name and power limit, and one
-JSON line {"kernels": [...]} with each kernel's launches on its main path
-(K1: the flagship run; K2, K3: the train run; K4: the fused run), its
+JSON line {"kernels": [...]} with each kernel's launches on the paths
+that run it, summed (K1: the flagship, densenet121 and int8 serving
+runs; K2, K3: the resnet50 and densenet121 train runs; K4: the fused
+run; each counted from 0 just before its run, and logged by path), its
 error against the twin, its time beside the twin's, its bound and the
 library call's time. K4's times and bound are summed over the 12 calls
 of one resnet50 forward (2, 3, 5 and 2 at the four stage shapes).
@@ -128,13 +155,14 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, "tests", "fixtures", "golden")
 PHASES = ("kernel", "golden", "flagship", "fused", "general", "cli", "host",
-          "train", "train_cli", "dynamics")
+          "train", "train_cli", "dynamics", "densenet", "quant")
 # H100 SXM peaks: f32 outside the tensor cores, bf16 dense on the tensor
 # cores, and HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 FLAGSHIP_B = 64
+TRAIN_B = 8
 # Shares of K2's and K3's bf16 outputs equal to the twins' bit for bit at
 # the training shape, set from horizonnet_tpu_torch/tools/split_check.py
 # (three terms of the split reach them; two and one do not)
@@ -218,6 +246,31 @@ class SmokeFailure(Exception):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+def _launched(state, kernel, path, n):
+    """Record ``kernel``'s launches on one path's run, counted from 0 just
+    before it; the kernels line sums the paths."""
+    check(n > 0, f"{kernel} was not launched on the {path} path")
+    paths = state["launches"].setdefault(kernel, {})
+    paths[path] = n
+    state["kernels"][kernel]["launches"] = sum(paths.values())
+
+
+def _randomize_bn(model, g):
+    """Batch norm parameters and statistics away from identity, drawn from
+    the CPU generator ``g``, so that every one of them matters."""
+    import torch
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                n = m.num_features
+                for t, lo, hi in ((m.weight, 0.5, 1.5), (m.running_var, 0.5,
+                                                          1.5)):
+                    t.copy_(torch.empty(n).uniform_(lo, hi, generator=g))
+                for t in (m.bias, m.running_mean):
+                    t.copy_(torch.empty(n).normal_(0, 0.1, generator=g))
 
 
 def phase_kernel(state):
@@ -716,17 +769,24 @@ def _flagship_wire(state, B=FLAGSHIP_B, n_distinct=3):
     return state["wire"]
 
 
-def _flagship_engine(postproc, fused_blocks=""):
-    """resnet50_rnn, bf16, the flagship batch, dct4 wire, random weights
-    (seed 0)."""
+def _flagship_engine(postproc, fused_blocks="", backbone="resnet50",
+                     quant_int8=False):
+    """resnet50_rnn (or ``backbone``), bf16, the flagship batch, dct4
+    wire, random weights (seed 0); ``quant_int8``: the int8 encoder on the
+    same float weights folded by models/quant.py::quantize_state_dict."""
     import torch
     from horizonnet_tpu_torch.inference import InferenceEngine
     from horizonnet_tpu_torch.models import build_model
+    from horizonnet_tpu_torch.models.quant import quantize_state_dict
 
-    model = build_model("resnet50", True, device="cuda",
-                        dtype=torch.bfloat16, lstm_impl="kernel", seed=0,
-                        fused_blocks=fused_blocks)
-    return InferenceEngine(model, model.state_dict(), batch_size=FLAGSHIP_B,
+    kw = dict(device="cuda", dtype=torch.bfloat16, lstm_impl="kernel")
+    model = build_model(backbone, True, seed=0, fused_blocks=fused_blocks,
+                        **kw)
+    sd = model.state_dict()
+    if quant_int8:
+        sd = quantize_state_dict(sd)
+        model = build_model(backbone, True, quant_int8=True, **kw)
+    return InferenceEngine(model, sd, batch_size=FLAGSHIP_B,
                            postproc=postproc, input_format="dct4",
                            device="cuda")
 
@@ -785,8 +845,7 @@ def phase_flagship(state):
         check(len(results) == n_batches, "serve_stream lost batches")
         serving.append(rate)
     launches = cuda_lstm.launches
-    check(launches > 0, "K1 was not launched on the main path")
-    state["kernels"]["bilstm_fwd"]["launches"] = launches
+    _launched(state, "bilstm_fwd", "flagship", launches)
 
     xs = [eng.put(w) for w in wire]
     device = [_device_rate(eng, xs, n_batches) for _ in range(reps)]
@@ -852,7 +911,7 @@ def phase_fused(state):
     forwards = 2 * reps * n_batches
     check(launches == 12 * forwards, f"K4 launches {launches} on "
           f"{forwards} fused forwards, not 12 each")
-    state["kernels"]["fused_bottleneck"]["launches"] = launches
+    _launched(state, "fused_bottleneck", "fused flagship", launches)
     med = {k: statistics.median(v) for k, v in serving.items()}
     dmed = {k: statistics.median(v) for k, v in device.items()}
     log(f"flagship resnet50_rnn bf16 B=64 dct4 cuboid, in turns (unfused, "
@@ -872,15 +931,8 @@ def phase_fused(state):
     g = torch.Generator(device="cpu").manual_seed(1)
     models = [build_model("resnet50", True, device="cuda", seed=0,
                           fused_blocks=f) for f in ("", "kernel")]
+    _randomize_bn(models[0], g)
     with torch.no_grad():
-        for m in models[0].modules():
-            if isinstance(m, torch.nn.BatchNorm2d):
-                n = m.num_features
-                for t, lo, hi in ((m.weight, 0.5, 1.5), (m.running_var, 0.5,
-                                                          1.5)):
-                    t.copy_(torch.empty(n).uniform_(lo, hi, generator=g))
-                for t in (m.bias, m.running_mean):
-                    t.copy_(torch.empty(n).normal_(0, 0.1, generator=g))
         models[1].load_state_dict(models[0].state_dict())
         x = torch.rand(1, 3, 512, 1024, generator=g).cuda()
         fused_block.launches = 0
@@ -1285,12 +1337,40 @@ def _write_rooms(root, n, H=512, W=1024, seed0=0):
                    fmt="%.4f")
 
 
+def _train_batch(state):
+    """One training batch of TRAIN_B synthetic rooms (seed 0) written as a
+    PNG dataset, read, labelled and augmented on the card through the uint8
+    wire, built once per run: (x, y_bon, y_cor, the raw uint8 panos on the
+    card, seconds the build took)."""
+    if "train_batch" not in state:
+        import numpy as np
+        import torch
+        from horizonnet_tpu_torch.data.dataset import (PanoCorBonDataset,
+                                                       make_training_batch)
+
+        dev = torch.device("cuda")
+        os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+        with tempfile.TemporaryDirectory(
+                dir=os.path.join(REPO, "build")) as root:
+            _write_rooms(root, TRAIN_B)
+            ds = PanoCorBonDataset(root, flip=True, rotate=True, gamma=True,
+                                   stretch=True)
+            t0 = time.perf_counter()
+            x, y_bon, y_cor = make_training_batch(
+                ds, list(range(TRAIN_B)), np.random.default_rng(0),
+                device=dev)
+            torch.cuda.synchronize()
+            t_batch = time.perf_counter() - t0
+            raw = torch.from_numpy(np.stack([
+                ds.load_raw(i)[0] for i in range(TRAIN_B)])).to(dev)
+        state["train_batch"] = (x, y_bon, y_cor, raw, t_batch)
+    return state["train_batch"]
+
+
 def phase_train(state):
     import numpy as np
     import torch
     from horizonnet_tpu_torch.data.augment import augment_images
-    from horizonnet_tpu_torch.data.dataset import (PanoCorBonDataset,
-                                                   make_training_batch)
     from horizonnet_tpu_torch.models import build_model
     from horizonnet_tpu_torch.ops import cuda_lstm_train as clt
     from horizonnet_tpu_torch.train.engine import TrainEngine
@@ -1298,22 +1378,10 @@ def phase_train(state):
     from horizonnet_tpu_torch.train.step import (create_train_state,
                                                  loss_terms, make_optimizer)
 
-    B, H, W, n_warm, n_steps, reps = 8, 512, 1024, 3, 5, 4
+    B, H, W, n_warm, n_steps, reps = TRAIN_B, 512, 1024, 3, 5, 4
     dev = torch.device("cuda")
     card = state["card"]
-    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as root:
-        _write_rooms(root, B)
-        ds = PanoCorBonDataset(root, flip=True, rotate=True, gamma=True,
-                               stretch=True)
-        t0 = time.perf_counter()
-        x, y_bon, y_cor = make_training_batch(ds, list(range(B)),
-                                              np.random.default_rng(0),
-                                              device=dev)
-        torch.cuda.synchronize()
-        t_batch = time.perf_counter() - t0
-        raw = torch.from_numpy(np.stack([ds.load_raw(i)[0]
-                                         for i in range(B)])).to(dev)
+    x, y_bon, y_cor, raw, t_batch = _train_batch(state)
     args = [torch.full((B,), v, device=dev) for v in (1.3, 1.2)] + [
         torch.ones(B, dtype=torch.bool, device=dev),
         torch.arange(B, device=dev) * 100, torch.full((B,), 0.8, device=dev)]
@@ -1358,8 +1426,8 @@ def phase_train(state):
     first, last = losses[0], float(np.mean(losses[-3:]))
     check(last < first, f"loss on the repeated batch did not fall: "
           f"{first} -> {last}")
-    state["kernels"]["bilstm_train_fwd"]["launches"] = k2
-    state["kernels"]["bilstm_bwd"]["launches"] = k3
+    _launched(state, "bilstm_train_fwd", "train", k2)
+    _launched(state, "bilstm_bwd", "train", k3)
     log(f"train resnet50_rnn bf16 (f32 params) B={B} {H}x{W} kernel_train: "
         f"{statistics.median(rates):.2f} panos/s (median of {reps} runs of "
         f"{n_steps} steps; runs {[round(v, 2) for v in rates]}), "
@@ -1537,6 +1605,314 @@ def phase_cli(state):
         check(dpx < 2.0, f"{mode} CLI corners off by {dpx} px")
 
 
+def _in_turns(engs, a, b, feed, xs, finish, reps):
+    """Serving and device-resident panos/s of engines ``a`` and ``b`` in
+    turns, (a, b, b, a) x reps: ({name: [serving]}, {name: [device]})."""
+    serving, device = {a: [], b: []}, {a: [], b: []}
+    for name in (a, b, b, a) * reps:
+        serving[name].append(_serve(engs[name], feed, finish)[0])
+    for name in (a, b, b, a) * reps:
+        device[name].append(_device_rate(engs[name], xs, len(feed)))
+    return serving, device
+
+
+def _turns_line(serving, device):
+    """'serving a x, b y panos/s (runs ...); device ...' for _in_turns."""
+    def part(rates):
+        med = ", ".join(f"{k} {statistics.median(v):.1f}"
+                        for k, v in rates.items())
+        runs = " / ".join(str([round(x, 1) for x in v])
+                          for v in rates.values())
+        return f"{med} panos/s (runs {runs})"
+    return f"serving {part(serving)}; device {part(device)}"
+
+
+def _top_kernels(name, fn, n=2, top=8):
+    """Log the device time of fn() by kernel under the profiler (mean of n
+    calls): device busy ms and the ``top`` largest kernels. Informational:
+    the profiler can lose records (see _one_kernel_per_call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(0.2)
+    rows = sorted(((e.self_device_time_total / 1e3 / n, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
+    busy = sum(t for t, _ in rows)
+    log(f"{name}: profiler device busy {busy:.2f} ms a call; top kernels:")
+    for t, key in rows[:top]:
+        log(f"  {t:8.3f} ms  {100 * t / busy:5.1f} %  {key[:90]}")
+
+
+def phase_densenet(state):
+    import numpy as np
+    import torch
+    from horizonnet_tpu_torch.models import build_model
+    from horizonnet_tpu_torch.models.registry import ENCODER_DENSENET
+    from horizonnet_tpu_torch.ops import cuda_lstm
+    from horizonnet_tpu_torch.ops import cuda_lstm_train as clt
+    from horizonnet_tpu_torch.postproc import unpack_cuboid_outputs
+    from horizonnet_tpu_torch.train.engine import TrainEngine
+    from horizonnet_tpu_torch.train.schedule import warmup_poly_schedule
+    from horizonnet_tpu_torch.train.step import (create_train_state,
+                                                 make_optimizer)
+
+    card = state["card"]
+    B, n_batches, reps = FLAGSHIP_B, 12, 2
+    wire = _flagship_wire(state)
+    engs = {"densenet121": _flagship_engine("cuboid", backbone="densenet121"),
+            "resnet50": _flagship_engine("cuboid")}
+    xs = [engs["resnet50"].put(w) for w in wire]
+
+    def finish(outs):
+        cid, z1 = unpack_cuboid_outputs(outs)
+        check(cid.shape == (B, 8, 2) and bool(
+            np.isfinite(cid).all() and np.isfinite(z1).all()),
+            f"densenet121 serving result {cid.shape} not finite")
+        return cid
+
+    feed = [wire[i % len(wire)] for i in range(n_batches)]
+    for eng in engs.values():                               # warm-up
+        _serve(eng, wire, finish)
+    cuda_lstm.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    _serve(engs["densenet121"], feed, finish)
+    k1 = cuda_lstm.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(k1 == 2 * n_batches, f"K1 launched {k1} times in {n_batches} "
+          "densenet121 forwards of 2 recurrences")
+    _launched(state, "bilstm_fwd", "densenet121 serving", k1)
+    serving, device = _in_turns(engs, "densenet121", "resnet50", feed, xs,
+                                finish, reps)
+    log(f"densenet121_rnn bf16 B={B} dct4 cuboid against the resnet50 "
+        f"flagship, in turns (densenet121, resnet50, resnet50, densenet121) "
+        f"x {reps}: {_turns_line(serving, device)}; densenet121 peak memory "
+        f"{peak:.1f} GiB, K1 launches {k1} in {n_batches} forwards [{card}]")
+    _top_kernels(f"densenet121 serving, one B={B} batch",
+                 lambda: engs["densenet121"].run(xs[0]))
+    del engs, xs
+    torch.cuda.empty_cache()
+
+    # each densenet, f32 at B=1 with randomized batch norm, TF32 off: the
+    # card against the same model's forward on the CPU
+    g = torch.Generator(device="cpu").manual_seed(1)
+    x = torch.rand(1, 3, 512, 1024, generator=g)
+    for bb in ENCODER_DENSENET:
+        cpu = build_model(bb, True, device="cpu", seed=0)
+        _randomize_bn(cpu, g)
+        gpu = build_model(bb, True, device="cuda", lstm_impl="kernel")
+        gpu.load_state_dict(cpu.state_dict())
+        cuda_lstm.launches = 0
+        with torch.no_grad():
+            want = cpu(x)
+            got = gpu(x.cuda())
+            torch.cuda.synchronize()
+        (rb, db), (rc, dc) = (rel_err(a.cpu(), w) for a, w in zip(got, want))
+        log(f"{bb}_rnn f32 B=1 512x1024 (randomized batch norm, TF32 off), "
+            f"card against CPU: bon {db:.2e} ({rb:.2e} relative), cor "
+            f"{dc:.2e} ({rc:.2e}) (tol 2e-4 relative to max(1, |cpu|)); K1 "
+            f"launches {cuda_lstm.launches}")
+        check(cuda_lstm.launches == 2, f"{bb}: K1 was not launched twice")
+        check(max(rb, rc) <= 2e-4, f"{bb} card off the CPU: {rb}, {rc}")
+        del cpu, gpu
+
+    # training: densenet121 at the train phase's configuration
+    n_warm, n_steps = 3, 10
+    dev = torch.device("cuda")
+    x, y_bon, y_cor, _, _ = _train_batch(state)
+    model = build_model("densenet121", True, device=dev, dtype=torch.bfloat16,
+                        lstm_impl="kernel_train", param_dtype=torch.float32,
+                        seed=0)
+    st = create_train_state(model, make_optimizer(
+        "Adam", warmup_poly_schedule(1e-4, 1000)))
+    eng = TrainEngine(model, st, TRAIN_B, 512, 1024, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    losses = [eng.step(x, y_bon, y_cor, gen)["total"] for _ in range(n_warm)]
+    torch.cuda.synchronize()
+    clt.fwd_launches = clt.bwd_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        losses.append(eng.step(x, y_bon, y_cor, gen)["total"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    k2, k3 = clt.fwd_launches, clt.bwd_launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [v.item() for v in losses]
+    check(all(np.isfinite(losses)), f"densenet121 losses not finite: "
+          f"{losses}")
+    first, last = losses[0], float(np.mean(losses[-3:]))
+    check(last < first, f"densenet121 loss on the repeated batch did not "
+          f"fall: {first} -> {last}")
+    _launched(state, "bilstm_train_fwd", "densenet121 train", k2)
+    _launched(state, "bilstm_bwd", "densenet121 train", k3)
+    log(f"train densenet121_rnn bf16 (f32 params) B={TRAIN_B} 512x1024 "
+        f"kernel_train, Adam: {n_steps * TRAIN_B / dt:.2f} panos/s, "
+        f"{dt / n_steps * 1e3:.2f} ms/step ({n_steps} steps after {n_warm} "
+        f"warm-up), peak memory {peak:.2f} GiB, K2 launches {k2}, K3 "
+        f"launches {k3}; loss {first:.4f} -> {last:.4f} over {len(losses)} "
+        f"steps on one batch [{card}]")
+    del eng, st, model
+    torch.cuda.empty_cache()
+
+
+def phase_quant(state):
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from horizonnet_tpu_torch.cli.inference import main as cli_main
+    from horizonnet_tpu_torch.inference import InferenceEngine
+    from horizonnet_tpu_torch.models import build_model
+    from horizonnet_tpu_torch.models.layers import (BatchNorm2d, QuantConvBN,
+                                                    WrapConv)
+    from horizonnet_tpu_torch.models.quant import quantize_state_dict
+    from horizonnet_tpu_torch.ops import cuda_lstm
+    from horizonnet_tpu_torch.postproc import unpack_cuboid_outputs
+    from horizonnet_tpu_torch.train.checkpoint import load_trained_model
+
+    card = state["card"]
+    B, n_batches, reps = FLAGSHIP_B, 6, 2
+    wire = _flagship_wire(state)
+    engs = {"int8": _flagship_engine("cuboid", quant_int8=True),
+            "bf16": _flagship_engine("cuboid")}
+    xs = [engs["bf16"].put(w) for w in wire]
+
+    def finish(outs):
+        cid, z1 = unpack_cuboid_outputs(outs)
+        check(cid.shape == (B, 8, 2) and bool(
+            np.isfinite(cid).all() and np.isfinite(z1).all()),
+            f"int8 serving result {cid.shape} not finite")
+        return cid
+
+    feed = [wire[i % len(wire)] for i in range(n_batches)]
+    for eng in engs.values():                               # warm-up
+        _serve(eng, wire, finish)
+    cid = {k: unpack_cuboid_outputs(e.run(xs[0]))[0] for k, e in engs.items()}
+    drift = np.abs(cid["int8"] - cid["bf16"]) * np.array([1024, 512])
+    cuda_lstm.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    _serve(engs["int8"], feed, finish)
+    k1 = cuda_lstm.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(k1 == 2 * n_batches, f"K1 launched {k1} times in {n_batches} int8 "
+          "forwards of 2 recurrences")
+    _launched(state, "bilstm_fwd", "int8 serving", k1)
+    serving, device = _in_turns(engs, "int8", "bf16", feed, xs, finish, reps)
+    log(f"resnet50_rnn int8 encoder (quant_int8) against the bf16 flagship, "
+        f"B={B} dct4 cuboid, same float weights, in turns (int8, bf16, bf16, "
+        f"int8) x {reps}: {_turns_line(serving, device)}; int8 peak memory "
+        f"{peak:.1f} GiB, K1 launches {k1} in {n_batches} forwards; first "
+        f"batch corner drift int8 against bf16 (random weights) max "
+        f"{drift.max():.3f} px, median {np.median(drift):.3f} px [{card}]")
+    _top_kernels(f"int8 serving, one B={B} batch",
+                 lambda: engs["int8"].run(xs[0]), top=12)
+    del engs, xs
+    torch.cuda.empty_cache()
+
+    # one QuantConvBN at the stem and at stage 1's 3x3: int32 sums on the
+    # card equal to the CPU's bit for bit (B=8), then B=64 bf16 timed beside
+    # the float conv + batch norm; WrapConv with and without seam_fix
+    g = torch.Generator(device="cpu").manual_seed(2)
+    cl = torch.channels_last
+    for name, (cin, cout, k, st, p, H, W) in (
+            ("stem 7x7/2 3->64 at 512x1024", (3, 64, 7, 2, 3, 512, 1024)),
+            ("stage-1 3x3 64->64 at 128x256", (64, 64, 3, 1, 1, 128, 256))):
+        q = QuantConvBN(cin, cout, k, st, (p, p))
+        q.weight_q.copy_(torch.randint(-127, 128, q.weight_q.shape,
+                                       generator=g, dtype=torch.int8))
+        q.scale.copy_(torch.rand(cout, generator=g) * 1e-2 + 1e-3)
+        q.bias.copy_(torch.randn(cout, generator=g) * 0.1)
+        xq, _ = q.quantize(torch.randn(8, cin, H, W, generator=g)
+                           .contiguous(memory_format=cl))
+        want = q.accumulate(xq)
+        qd = q.cuda()
+        got = qd.accumulate(xq.cuda())
+        same = bool(torch.equal(got.cpu(), want))
+        xb = torch.randn(FLAGSHIP_B, cin, H, W, generator=g).to(
+            "cuda", torch.bfloat16).contiguous(memory_format=cl)
+        convs = [WrapConv(cin, cout, k, st, (p, p), seam_fix=f).to(
+            "cuda", torch.bfloat16) for f in (False, True)]
+        convs[1].load_state_dict(convs[0].state_dict())
+        bn = BatchNorm2d(cout).cuda().eval()
+        with torch.no_grad():
+            y0, y1 = (c(xb) for c in convs)
+            ms = {"int8": cuda_ms(lambda: qd(xb)),
+                  "bf16": cuda_ms(lambda: bn(convs[0](xb))),
+                  "pad": cuda_ms(lambda: convs[0](xb)),
+                  "seam_fix": cuda_ms(lambda: convs[1](xb)),
+                  "pad_": cuda_ms(lambda: convs[0](xb))}
+        log(f"{name}: int8 sums [8 panos] on the card equal the CPU's bit "
+            f"for bit: {same}; B={FLAGSHIP_B} bf16 input: QuantConvBN "
+            f"(quantize + im2col + _int_mm + dequantize) {ms['int8']:.3f} ms "
+            f"against WrapConv + BatchNorm2d {ms['bf16']:.3f} ms; WrapConv "
+            f"alone {ms['pad']:.3f} / {ms['pad_']:.3f} ms (materialized wrap "
+            f"pad, before and after), seam_fix {ms['seam_fix']:.3f} ms, "
+            f"outputs equal bit for bit: {bool(torch.equal(y0, y1))} "
+            f"(CUDA events, median) [{card}]")
+        check(same, f"{name}: the card's int32 sums differ from the CPU's")
+        check(bool(torch.equal(y0, y1)), f"{name}: WrapConv seam_fix "
+              "differs from the materialized pad")
+        del xb, y0, y1, convs, qd
+    torch.cuda.empty_cache()
+
+    # the golden checkpoint quantized: int8 corners against float, f32
+    img, want = _golden_inputs()
+    x = img[None].astype(np.float32) / 255.0
+    ckpt = os.path.join(GOLDEN, "resnet18_rnn_synth.ckpt")
+    model, sd = load_trained_model(ckpt, device="cuda")
+    qmodel = build_model("resnet18", True, device="cuda", quant_int8=True)
+    sdq = quantize_state_dict(sd)
+    (cf, zf), (cq, zq) = (
+        unpack_cuboid_outputs(InferenceEngine(m, w, postproc="cuboid",
+                                              device="cuda")(x))
+        for m, w in ((model, sd), (qmodel, sdq)))
+    dpx = float(np.abs(cq[0] - cf[0]).max() * 512)
+    dz1 = abs(float(zq[0]) - float(zf[0]))
+    log(f"golden quantized (f32, TF32 off): int8 corners {dpx:.4f} px from "
+        f"the float ones (bar 4), |dz1| {dz1:.4f} (bar "
+        f"{0.05 * abs(float(zf[0])) + 1:.3f})")
+    check(dpx < 4.0, f"golden int8 corners drifted {dpx} px")
+    check(dz1 < 0.05 * abs(float(zf[0])) + 1.0, f"golden int8 z1 off {dz1}")
+
+    # the inference CLI with --quant_int8: host path and device fit
+    pano = os.path.join(GOLDEN, "val_room.png")
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    for mode, extra in (("host", []), ("device_postproc",
+                                       ["--device_postproc"])):
+        with tempfile.TemporaryDirectory(
+                dir=os.path.join(REPO, "build")) as out:
+            err = io.StringIO()
+            with contextlib.redirect_stdout(io.StringIO()), \
+                    contextlib.redirect_stderr(err):
+                rc = cli_main(["--pth", ckpt, "--img_glob", pano,
+                               "--output_dir", out, "--device", "cuda",
+                               "--quant_int8", "--force_cuboid", *extra])
+            check(rc == 0, f"--quant_int8 CLI ({mode}) returned {rc}: "
+                  f"{err.getvalue()[-2000:]}")
+            with open(os.path.join(out, "val_room.json")) as f:
+                got = json.load(f)
+        uv = np.asarray(got["uv"])
+        check(uv.shape == (8, 2), f"--quant_int8 CLI ({mode}): {len(uv)} "
+              "corners")
+        dpx = float(np.abs(uv - want["cuboid_uv"]).max() * 512)
+        dz1 = abs(got["z1"] - float(want["cuboid_z1"]))
+        log(f"cli --quant_int8 --force_cuboid ({mode}): corners {dpx:.4f} "
+            f"px from golden_outputs.npz (float; bar 4), |dz1| {dz1:.4f}")
+        check(dpx < 4.0, f"--quant_int8 CLI ({mode}) off by {dpx} px")
+        check(dz1 < 0.05 * abs(float(want["cuboid_z1"])) + 1.0,
+              f"--quant_int8 CLI ({mode}) z1 off by {dz1}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", nargs="+", default=list(PHASES),
@@ -1568,7 +1944,7 @@ def main(argv=None):
                 "plain_ms": None, "bound_ms": None, "bound_by": None,
                 "library_ms": None}
 
-    state = {"card": card_line(), "kernels": {
+    state = {"card": card_line(), "launches": {}, "kernels": {
         "bilstm_fwd": record("bilstm_fwd", "bilstm_fwd.cu",
                              "pallas_lstm.py:31"),
         "bilstm_train_fwd": record("bilstm_train_fwd", "bilstm_train.cu",
@@ -1592,13 +1968,16 @@ def main(argv=None):
               "flagship": phase_flagship, "fused": phase_fused,
               "general": phase_general, "cli": phase_cli,
               "host": phase_host, "train": phase_train,
-              "train_cli": phase_train_cli, "dynamics": phase_dynamics}
+              "train_cli": phase_train_cli, "dynamics": phase_dynamics,
+              "densenet": phase_densenet, "quant": phase_quant}
     for name in args.phases:
         t0 = time.perf_counter()
         log(f"== phase {name}")
         phases[name](state)
         log(f"== phase {name} ok ({time.perf_counter() - t0:.1f} s)")
 
+    log(f"launches by path (each counted from 0 just before its run; the "
+        f"kernels line sums them): {json.dumps(state['launches'])}")
     print(json.dumps({"kernels": list(state["kernels"].values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,9 +22,12 @@ and a worker thread runs the greedy wall commitment on them
 ``--lstm_impl``: ``pallas`` runs the CUDA kernel (csrc/bilstm_fwd.cu),
 ``scan`` the plain PyTorch loop, ``auto`` the kernel on a CUDA device.
 ``--s2d_stem`` is accepted and runs the standard stem: the space-to-depth
-stem is the same math rearranged for the TPU's matrix unit. Still to
-port, each raising NotImplementedError naming its ROADMAP item:
---quant_int8 and --profile_dir.
+stem is the same math rearranged for the TPU's matrix unit.
+``--quant_int8`` serves the int8 resnet encoder (models/quant.py folds the
+loaded weights; the height stage and the head stay float), on the host
+path and with --device_postproc; with --s2d_stem it is refused, as in
+JAX. Still to port: --profile_dir raises NotImplementedError (ROADMAP
+Queue 1 item 11).
 """
 
 import argparse
@@ -75,7 +78,10 @@ def main(argv=None):
     parser.add_argument("--s2d_stem", action="store_true",
                         help="accepted; the port runs the standard stem "
                              "(same math)")
-    parser.add_argument("--quant_int8", action="store_true")
+    parser.add_argument("--quant_int8", action="store_true",
+                        help="post-training int8 quantization of the "
+                             "resnet encoder (BN folded, int8 x int8 -> "
+                             "int32 products); the head stays float")
     parser.add_argument("--lstm_impl", default="auto",
                         choices=["auto", "scan", "pallas"],
                         help="LSTM recurrence: pallas = the CUDA kernel, "
@@ -87,8 +93,6 @@ def main(argv=None):
                              "device is an error")
     args = parser.parse_args(argv)
 
-    if args.quant_int8:
-        raise NotImplementedError("--quant_int8 is ROADMAP Queue 1 item 7")
     if args.profile_dir:
         raise NotImplementedError("--profile_dir (torch.profiler) is ROADMAP "
                                   "Queue 1 item 11")
@@ -96,6 +100,8 @@ def main(argv=None):
     import torch
 
     from ..inference import resolve_device
+    from ..models import build_model
+    from ..models.quant import quantize_state_dict
     from ..train.checkpoint import load_trained_model
 
     device = resolve_device(args.device)
@@ -106,10 +112,18 @@ def main(argv=None):
     os.makedirs(args.output_dir, exist_ok=True)
 
     lstm_impl = LSTM_IMPLS.get(args.lstm_impl, "kernel")
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
     model, state_dict = load_trained_model(
-        args.pth, device=device,
-        dtype=torch.bfloat16 if args.bf16 else torch.float32,
-        lstm_impl=lstm_impl)
+        args.pth, device=device, dtype=dtype, lstm_impl=lstm_impl)
+    if args.quant_int8:
+        # the JAX CLI's serving-time rebuild: the int8 encoder takes the
+        # folded weights (build_model refuses it beside --s2d_stem)
+        model = build_model(model.backbone, model.use_rnn, device=device,
+                            dtype=dtype, lstm_impl=lstm_impl,
+                            seam_pool=model.seam_pool, quant_int8=True,
+                            s2d_stem=args.s2d_stem)
+        state_dict = quantize_state_dict(state_dict)
+        model.load_state_dict(state_dict)
     _serve(paths, args, model, state_dict, device)
     return 0
 

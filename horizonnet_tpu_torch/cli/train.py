@@ -21,10 +21,11 @@ trains without validation, and then writes no checkpoint.ckpt.
 ``--lstm_impl``: ``pallas_train`` runs the CUDA pair K2/K3
 (csrc/bilstm_train.cu) in training and K1 in the validation forward (the
 JAX model's eval mode takes the serving kernel), ``scan`` autograd
-through the plain loop. ``--s2d_stem`` is accepted and runs the standard
-stem (the same math rearranged for the TPU's matrix unit). Still to
-port, each raising NotImplementedError: --seam_pool and the densenet
-encoders (ROADMAP Queue 1 item 7); --n_model > 1 (item 9).
+through the plain loop. ``--backbone`` takes the resnet and densenet
+encoders; ``--seam_pool`` wrap-pads the stem's max pool. ``--s2d_stem``
+is accepted and runs the standard stem (the same math rearranged for the
+TPU's matrix unit). Still to port: --n_model > 1 raises
+NotImplementedError (ROADMAP Queue 1 item 9).
 """
 
 import argparse
@@ -98,7 +99,9 @@ def build_argparser():
     parser.add_argument("--seed", default=594277, type=int)
     parser.add_argument("--save_every", default=25, type=int)
     parser.add_argument("--seam_pool", action="store_true",
-                        help="wrap-padded maxpool (still to port)")
+                        help="wrap-padded maxpool: exact seam equivariance "
+                             "(train from scratch; the reference pools "
+                             "with edge padding)")
     parser.add_argument("--device", default="cuda",
                         help="torch device to train on; a missing CUDA "
                              "device is an error")
@@ -187,8 +190,6 @@ def validate(engine, dataset, batch_size):
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    if args.seam_pool:
-        raise NotImplementedError("--seam_pool is ROADMAP Queue 1 item 7")
     if args.n_model > 1:
         raise NotImplementedError("--n_model > 1 (tensor parallelism) is "
                                   "ROADMAP Queue 1 item 9")
@@ -224,7 +225,8 @@ def main(argv=None):
                     dtype=torch.bfloat16 if args.bf16 else torch.float32,
                     lstm_impl=LSTM_IMPLS[args.lstm_impl],
                     param_dtype=torch.float32,
-                    bn_momentum=args.bn_momentum or 0.1)
+                    bn_momentum=args.bn_momentum or 0.1,
+                    seam_pool=args.seam_pool)
     if args.pth:
         print("Finetune model is given. Ignore --backbone and --no_rnn")
         model, _ = load_trained_model(args.pth, **build_kw)

@@ -1,4 +1,4 @@
-"""HorizonNet model family of the port (resnet encoders)."""
+"""HorizonNet model family of the port (resnet and densenet encoders)."""
 
 from .horizonnet import HorizonNet
 from .registry import build_model

@@ -31,8 +31,9 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from .densenet import DenseNetEncoder, densenet_feature_channels
 from .height import GlobalHeightStage
-from .layers import Linear
+from .layers import Linear, QuantConvBN
 from .resnet import ResNetEncoder, resnet_feature_channels
 from ..ops.dropout import dropout
 from ..ops.lstm import bilstm
@@ -126,9 +127,22 @@ class BiLSTM(nn.Module):
 
 
 class _FeatureExtractor(nn.Module):
-    def __init__(self, backbone, bn_momentum, fused_blocks):
+    def __init__(self, backbone, bn_momentum, fused_blocks, seam_pool,
+                 quant_int8):
         super().__init__()
-        self.encoder = ResNetEncoder(backbone, bn_momentum, fused_blocks)
+        if backbone.startswith("res"):
+            self.encoder = ResNetEncoder(backbone, bn_momentum, fused_blocks,
+                                         seam_pool, quant_int8)
+            self.channels = resnet_feature_channels(backbone)
+        elif backbone.startswith("dense"):
+            if quant_int8:
+                raise NotImplementedError(
+                    "quant_int8 covers the resnet family (the FLOPs-"
+                    "dominant encoders); densenet stays float")
+            self.encoder = DenseNetEncoder(backbone, bn_momentum, seam_pool)
+            self.channels = densenet_feature_channels(backbone)
+        else:
+            raise NotImplementedError(backbone)
 
 
 class HorizonNet(nn.Module):
@@ -137,23 +151,26 @@ class HorizonNet(nn.Module):
     random from a torch.Generator seeded with ``seed`` until weights are
     loaded. ``bn_momentum`` is torch's running-stat momentum.
     ``fused_blocks="kernel"`` serves the identity bottlenecks as fused
-    blocks (models/resnet.py, K4); the default runs them unfused."""
+    blocks (models/resnet.py, K4); the default runs them unfused.
+    ``seam_pool`` wrap-pads the encoder stem's max pool (exact seam
+    equivariance). ``quant_int8`` is the serving-only int8 resnet encoder
+    (models/layers.py::QuantConvBN; its weights come from
+    models/quant.py::quantize_state_dict); the height stage and the head
+    stay float."""
 
     def __init__(self, backbone="resnet50", use_rnn=True, *, device,
                  dtype=torch.float32, lstm_impl="kernel", seed=0,
-                 param_dtype=None, bn_momentum=0.1, fused_blocks=""):
+                 param_dtype=None, bn_momentum=0.1, fused_blocks="",
+                 seam_pool=False, quant_int8=False):
         super().__init__()
-        if not backbone.startswith("res"):
-            raise NotImplementedError(
-                f"{backbone}: the densenet encoders are ROADMAP Queue 1 "
-                "item 7")
         self.backbone = backbone
         self.use_rnn = use_rnn
         self.dtype = dtype
+        self.seam_pool = seam_pool
         with torch.device("meta"):
-            self.feature_extractor = _FeatureExtractor(backbone, bn_momentum,
-                                                       fused_blocks)
-            c1, c2, c3, c4 = resnet_feature_channels(backbone)
+            self.feature_extractor = _FeatureExtractor(
+                backbone, bn_momentum, fused_blocks, seam_pool, quant_int8)
+            c1, c2, c3, c4 = self.feature_extractor.channels
             self.reduce_height_module = GlobalHeightStage(
                 (c1, c2, c3, c4), OUT_SCALE, bn_momentum)
             c_last = (c1 * 8 + c2 * 4 + c3 * 2 + c4) // OUT_SCALE
@@ -190,7 +207,7 @@ class HorizonNet(nn.Module):
                                  generator=generator)
                 if m.bias is not None:
                     m.bias.zero_()
-            elif isinstance(m, nn.BatchNorm2d):
+            elif isinstance(m, (nn.BatchNorm2d, QuantConvBN)):
                 m.reset_parameters()
             elif isinstance(m, BiLSTM):
                 k = 1.0 / math.sqrt(m.hidden_size)

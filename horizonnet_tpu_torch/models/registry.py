@@ -1,7 +1,7 @@
 """Backbone registry and model construction (reference model.py:18-24).
 
-Counterpart of horizonnet_tpu/models/registry.py for the resnet family;
-the densenet encoders are ROADMAP Queue 1 item 7.
+Counterpart of horizonnet_tpu/models/registry.py: the resnet and
+densenet encoder families.
 """
 
 import torch
@@ -19,21 +19,30 @@ ENCODER_DENSENET = [
 
 def build_model(backbone="resnet50", use_rnn=True, *, device,
                 dtype=torch.float32, lstm_impl="kernel", seed=0,
-                param_dtype=None, bn_momentum=0.1,
-                fused_blocks="") -> HorizonNet:
+                param_dtype=None, bn_momentum=0.1, fused_blocks="",
+                seam_pool=False, quant_int8=False,
+                s2d_stem=False) -> HorizonNet:
     """A HorizonNet on ``device`` in eval mode, random from ``seed``.
     A training model passes ``param_dtype=torch.float32`` (f32 weights,
     ``dtype`` compute). ``fused_blocks="kernel"`` serves the resnet
-    bottlenecks' identity blocks fused (K4, ops/fused_block.py)."""
+    bottlenecks' identity blocks fused (K4, ops/fused_block.py).
+    ``seam_pool`` wrap-pads the stem's max pool; ``quant_int8`` builds
+    the serving-only int8 resnet encoder, which loads the state_dict of
+    models/quant.py::quantize_state_dict. ``s2d_stem`` runs the standard
+    stem, the same math as the JAX package's space-to-depth stem; it is
+    taken only to refuse it beside ``quant_int8``, as JAX does. Raises
+    the JAX package's ValueErrors (horizonnet_tpu/models/registry.py:
+    24-31)."""
+    if backbone not in ENCODER_RESNET + ENCODER_DENSENET:
+        raise ValueError(f"unknown backbone {backbone!r}")
+    if quant_int8 and s2d_stem:
+        raise ValueError("quant_int8 and s2d_stem are mutually exclusive "
+                         "(the quant stem is the plain 7x7 path)")
     if fused_blocks and backbone not in ENCODER_RESNET:
         raise ValueError("fused_blocks covers the resnet bottleneck family "
                          "(ops/fused_block.py)")
-    if backbone in ENCODER_DENSENET:
-        raise NotImplementedError(
-            f"{backbone}: the densenet encoders are ROADMAP Queue 1 item 7")
-    if backbone not in ENCODER_RESNET:
-        raise ValueError(f"unknown backbone {backbone!r}")
     return HorizonNet(backbone, use_rnn, device=device, dtype=dtype,
                       lstm_impl=lstm_impl, seed=seed,
                       param_dtype=param_dtype, bn_momentum=bn_momentum,
-                      fused_blocks=fused_blocks)
+                      fused_blocks=fused_blocks, seam_pool=seam_pool,
+                      quant_int8=quant_int8)

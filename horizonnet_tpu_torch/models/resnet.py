@@ -12,15 +12,37 @@ downsample, groups 1) in eval mode as one fused block
 (ops/fused_block.py, K4), as the JAX package does with
 ``fused_blocks="pallas"``; the parameters, and so the state_dict keys,
 are the same fused or not.
+
+``quant=True`` is the serving-only int8 encoder (JAX ``resnet.py:23-40``):
+every Conv+BN pair is one models/layers.py::QuantConvBN under the conv's
+name (stem, ``conv1-3``, ``downsample.0``), its batch norm folded in and
+gone (an ``nn.Identity`` in its place holds no state);
+models/quant.py::quantize_state_dict makes its state_dict from a float
+one. The fused blocks are not taken under quant, as in JAX.
+``seam_pool`` wrap-pads the stem's max pool.
 """
 
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import BatchNorm2d, Conv2d, conv2d, max_pool_same_as_torch
+from .layers import (BatchNorm2d, Conv2d, QuantConvBN, conv2d,
+                     max_pool_same_as_torch)
 
 
-def _downsample(cin, cout, stride, bn_momentum):
+def _conv_bn(cin, cout, k, stride=1, padding=0, groups=1, bn_momentum=0.1,
+             quant=False):
+    """(conv, bn) of one Conv+BN unit: float, or (QuantConvBN,
+    nn.Identity) under quant."""
+    if quant:
+        return (QuantConvBN(cin, cout, k, stride, (padding, padding),
+                            groups), nn.Identity())
+    return (conv2d(cin, cout, k, stride, padding, groups=groups),
+            BatchNorm2d(cout, momentum=bn_momentum))
+
+
+def _downsample(cin, cout, stride, bn_momentum, quant):
+    if quant:
+        return nn.Sequential(QuantConvBN(cin, cout, 1, stride))
     return nn.Sequential(Conv2d(cin, cout, 1, stride, bias=False),
                          BatchNorm2d(cout, momentum=bn_momentum))
 
@@ -29,13 +51,14 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, cin, planes, stride=1, downsample=False, groups=1,
-                 base_width=64, bn_momentum=0.1):
+                 base_width=64, bn_momentum=0.1, quant=False):
         super().__init__()
-        self.conv1 = conv2d(cin, planes, 3, stride, 1)
-        self.bn1 = BatchNorm2d(planes, momentum=bn_momentum)
-        self.conv2 = conv2d(planes, planes, 3, 1, 1)
-        self.bn2 = BatchNorm2d(planes, momentum=bn_momentum)
-        self.downsample = (_downsample(cin, planes, stride, bn_momentum)
+        m = bn_momentum
+        self.conv1, self.bn1 = _conv_bn(cin, planes, 3, stride, 1,
+                                        bn_momentum=m, quant=quant)
+        self.conv2, self.bn2 = _conv_bn(planes, planes, 3, 1, 1,
+                                        bn_momentum=m, quant=quant)
+        self.downsample = (_downsample(cin, planes, stride, m, quant)
                            if downsample else None)
 
     def forward(self, x):
@@ -49,24 +72,27 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, cin, planes, stride=1, downsample=False, groups=1,
-                 base_width=64, bn_momentum=0.1, fused=""):
+                 base_width=64, bn_momentum=0.1, fused="", quant=False):
         super().__init__()
         if fused not in ("", "kernel"):
             raise ValueError(f"unknown fused block mode {fused!r}")
         self.stride, self.groups, self.fused = stride, groups, fused
+        self.quant = quant
         width = int(planes * (base_width / 64.0)) * groups
-        self.conv1 = conv2d(cin, width, 1)
-        self.bn1 = BatchNorm2d(width, momentum=bn_momentum)
-        self.conv2 = conv2d(width, width, 3, stride, 1, groups=groups)
-        self.bn2 = BatchNorm2d(width, momentum=bn_momentum)
-        self.conv3 = conv2d(width, planes * 4, 1)
-        self.bn3 = BatchNorm2d(planes * 4, momentum=bn_momentum)
-        self.downsample = (_downsample(cin, planes * 4, stride, bn_momentum)
+        m = bn_momentum
+        self.conv1, self.bn1 = _conv_bn(cin, width, 1, bn_momentum=m,
+                                        quant=quant)
+        self.conv2, self.bn2 = _conv_bn(width, width, 3, stride, 1, groups,
+                                        m, quant)
+        self.conv3, self.bn3 = _conv_bn(width, planes * 4, 1, bn_momentum=m,
+                                        quant=quant)
+        self.downsample = (_downsample(cin, planes * 4, stride, m, quant)
                            if downsample else None)
 
     def forward(self, x):
         if (self.fused and not self.training and self.stride == 1
-                and self.downsample is None and self.groups == 1):
+                and self.downsample is None and self.groups == 1
+                and not self.quant):
             return self._fused_forward(x)
         identity = x if self.downsample is None else self.downsample(x)
         out = F.relu(self.bn1(self.conv1(x)))
@@ -109,11 +135,12 @@ class ResNetEncoder(nn.Module):
     """Returns 4 feature maps at strides 4/8/16/32. x: [B, 3, H, W]."""
 
     def __init__(self, backbone="resnet50", bn_momentum=0.1,
-                 fused_blocks=""):
+                 fused_blocks="", seam_pool=False, quant=False):
         super().__init__()
         block, layers, groups, base_width = RESNET_SPECS[backbone]
-        self.conv1 = conv2d(3, 64, 7, 2, 3)
-        self.bn1 = BatchNorm2d(64, momentum=bn_momentum)
+        self.seam_pool = seam_pool
+        self.conv1, self.bn1 = _conv_bn(3, 64, 7, 2, 3,
+                                        bn_momentum=bn_momentum, quant=quant)
         cin, planes = 64, 64
         for li, n_blocks in enumerate(layers):
             stride = 1 if li == 0 else 2
@@ -124,18 +151,18 @@ class ResNetEncoder(nn.Module):
                     need_ds = bi == 0 and (s != 1 or li == 0)
                     blocks.append(Bottleneck(cin, planes, s, need_ds, groups,
                                              base_width, bn_momentum,
-                                             fused_blocks))
+                                             fused_blocks, quant))
                 else:
                     need_ds = bi == 0 and s != 1
                     blocks.append(BasicBlock(cin, planes, s, need_ds, groups,
-                                             base_width, bn_momentum))
+                                             base_width, bn_momentum, quant))
                 cin = planes * block.expansion
             setattr(self, f"layer{li + 1}", nn.Sequential(*blocks))
             planes *= 2
 
     def forward(self, x):
         x = F.relu(self.bn1(self.conv1(x)))
-        x = max_pool_same_as_torch(x, 3, 2, 1)
+        x = max_pool_same_as_torch(x, 3, 2, 1, wrap_width=self.seam_pool)
         feats = []
         for li in range(1, 5):
             x = getattr(self, f"layer{li}")(x)

@@ -1,7 +1,8 @@
 """The JAX package's variables <-> the port's (the reference's) state_dict.
 
 ``variables_to_state_dict`` is the exact inverse of horizonnet_tpu/models/
-torch_convert.py::torch_state_to_variables (resnet family): conv HWIO ->
+torch_convert.py::torch_state_to_variables (resnet and densenet
+families; densenet keys are torchvision's under ``features.``): conv HWIO ->
 OIHW, with the ``.1`` infix on width-padded (k > 1) convs; dense kernel
 [in, out] -> weight [out, in]; BN scale/bias/mean/var -> weight/bias/
 running_mean/running_var (num_batches_tracked 0); LSTM ``l{k}_w_ih/w_hh/b``
@@ -56,6 +57,7 @@ class _Writer:
 
 def _encoder(w, params, stats):
     pre = "feature_extractor.encoder"
+    dense = f"{pre}.features"
     for name, p in params.items():
         s = stats.get(name, {})
         if name == "conv1":
@@ -76,10 +78,33 @@ def _encoder(w, params, stats):
                     w.bn(f"{t}.downsample.1", sp["bn"], s[sub]["bn"])
                 else:
                     raise KeyError(f"encoder/{name}/{sub}")
+        elif name == "conv0":
+            w.conv(f"{dense}.conv0", p["conv"])
+        elif name in ("norm0", "norm5"):
+            w.bn(f"{dense}.{name}", p["bn"], s["bn"])
+        elif name.startswith("denseblock"):
+            block, layer = name.split("_")      # denseblock{i}, layer{j}
+            t = f"{dense}.{block}.dense{layer}"
+            for sub, sp in p.items():
+                if sub in ("conv1", "conv2"):
+                    w.conv(f"{t}.{sub}", sp["conv"])
+                elif sub in ("norm1", "norm2"):
+                    w.bn(f"{t}.{sub}", sp["bn"], s[sub]["bn"])
+                else:
+                    raise KeyError(f"encoder/{name}/{sub}")
+        elif name.startswith("transition"):
+            tr, kind = name.split("_")          # transition{i}, norm|conv
+            if kind == "conv":
+                w.conv(f"{dense}.{tr}.conv", p["conv"])
+            elif kind == "norm":
+                w.bn(f"{dense}.{tr}.norm", p["bn"], s["bn"])
+            else:
+                raise KeyError(f"encoder/{name}")
         else:
             raise NotImplementedError(
-                f"encoder/{name}: only the float resnet encoders convert "
-                "(densenet and int8 trees are ROADMAP Queue 1 item 7)")
+                f"encoder/{name}: only the float resnet and densenet "
+                "encoders convert (an int8 tree is made from a float one, "
+                "models/quant.py)")
 
 
 def variables_to_state_dict(variables):
@@ -132,6 +157,19 @@ def _module_path(parts):
     """state_dict key parts (without the leaf name) -> (flax module path,
     "conv" or "bn"); the reverse of _encoder / the height loop above. A
     width-padded conv's ``.1`` infix is a trailing part, ignored."""
+    if parts[:3] == ["feature_extractor", "encoder", "features"]:
+        p = parts[3:]
+        if p[0].startswith("denseblock"):
+            # denseblock{i}.denselayer{j}.{norm1,conv1,norm2,conv2}
+            name = p[2]
+            path = ["encoder", f"{p[0]}_{p[1][len('dense'):]}", name]
+        elif p[0].startswith("transition"):
+            name = p[1]                          # norm | conv
+            path = ["encoder", f"{p[0]}_{name}"]
+        else:
+            name = p[0]                          # conv0, norm0, norm5
+            path = ["encoder", name]
+        return path, "bn" if name.startswith("norm") else "conv"
     if parts[:2] == ["feature_extractor", "encoder"]:
         p = parts[2:]
         path = ["encoder"]

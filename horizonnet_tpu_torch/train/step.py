@@ -201,17 +201,28 @@ def eval_losses(state, x, y_bon, y_cor):
 
 
 def encoder_freeze_mask(names, n_frozen_blocks):
-    """{name: trainable} over parameter ``names``: freeze the stem (block
-    0: conv1, bn1) and layer1..layerN of the encoder. Mirrors
-    --freeze_earlier_blocks (train.py:200-208, model.py:84-91)."""
+    """{name: trainable} over parameter ``names``: freeze the encoder's
+    blocks 0..N. Mirrors --freeze_earlier_blocks (train.py:200-208,
+    model.py:84-91) with the JAX package's block map
+    (horizonnet_tpu/train/step.py:108-125): the stem (conv1, bn1; densenet
+    conv0, norm0) is block 0, layerN / denseblockN and transitionN are
+    block N, densenet's norm5 is block 4."""
     prefix = "feature_extractor.encoder."
+
+    def block_of(mod):
+        if mod in ("conv1", "bn1", "conv0", "norm0"):
+            return 0
+        for i in range(1, 5):
+            if mod.startswith((f"layer{i}", f"denseblock{i}",
+                               f"transition{i}")):
+                return i
+        return 4 if mod == "norm5" else None
 
     def trainable(name):
         if n_frozen_blocks < 0 or not name.startswith(prefix):
             return True
-        mod = name[len(prefix):].split(".")[0]
-        block = 0 if mod in ("conv1", "bn1") else (
-            int(mod[len("layer"):]) if mod.startswith("layer") else None)
+        parts = name[len(prefix):].split(".")
+        block = block_of(parts[1] if parts[0] == "features" else parts[0])
         return block is None or block > n_frozen_blocks
 
     return {n: trainable(n) for n in names}

@@ -353,3 +353,46 @@ def test_bilstm_back_to_back_on_one_stream(cuda):
     for g, x, v in zip(got, a, w):
         want = cuda_lstm.bilstm_recurrence_plain(x, v)
         assert (g.float() - want.float()).abs().max().item() <= 1e-2
+
+
+# (B, H, W, C, O, kernel, stride, pad, groups): the stem, stage 1's 3x3,
+# a strided 1x1, ResNeXt's grouped 3x3 (4 outputs a group) and 8 pixels
+# (rows padded to more than 16): the shapes _int_mm takes only padded
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,C,O,k,s,p,groups", [
+    (2, 64, 128, 3, 64, 7, 2, 3, 1), (2, 32, 64, 64, 64, 3, 1, 1, 1),
+    (2, 32, 64, 64, 128, 1, 2, 0, 1), (2, 8, 16, 128, 128, 3, 1, 1, 32),
+    (1, 2, 4, 16, 8, 3, 1, 1, 1)])
+def test_int8_conv_on_card_equals_cpu(cuda, B, H, W, C, O, k, s, p, groups):
+    """cuBLASLt's int8 GEMM through ops/int8_conv.py: the int32 sums equal
+    the CPU's bit for bit (integer sums are exact in any order)."""
+    from horizonnet_tpu_torch.ops.int8_conv import int8_conv_nhwc
+
+    g = torch.Generator().manual_seed(B + C + O)
+    xq = torch.randint(-127, 128, (B, H, W, C), generator=g,
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (O, C // groups, k, k), generator=g,
+                       dtype=torch.int8)
+    want = int8_conv_nhwc(xq, wq, (s, s), (p, p), groups)
+    got = int8_conv_nhwc(xq.to(cuda), wq.to(cuda), (s, s), (p, p), groups)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wrap_conv_seam_fix_on_card(cuda, dtype):
+    """WrapConv(seam_fix=True) on the card equals the materialized pad's
+    output bit for bit, at stage 1's 3x3 and the stem's 7x7/2."""
+    from horizonnet_tpu_torch.models.layers import WrapConv
+
+    g = torch.Generator().manual_seed(0)
+    for cin, cout, k, s, p, H, W in ((64, 64, 3, 1, 1, 32, 64),
+                                     (3, 64, 7, 2, 3, 64, 128)):
+        x = torch.randn(2, cin, H, W, generator=g).to(
+            cuda, getattr(torch, dtype)).contiguous(
+                memory_format=torch.channels_last)
+        convs = [WrapConv(cin, cout, k, s, (p, p), seam_fix=f).to(
+            cuda, getattr(torch, dtype)) for f in (False, True)]
+        convs[1].load_state_dict(convs[0].state_dict())
+        with torch.no_grad():
+            assert torch.equal(convs[1](x), convs[0](x))

@@ -213,9 +213,32 @@ def test_cli_golden(golden, tmp_path):
     assert abs(got["z1"] - float(want["cuboid_z1"])) < 0.2
 
 
+@pytest.mark.parametrize("extra", [
+    [], ["--device_postproc", "--wire", "dct"]])
+def test_cli_quant_int8(golden, tmp_path, extra):
+    """--quant_int8 on the golden, on the host path and with the fit on the
+    device: the int8 corners within 4 px of golden_outputs.npz (the float
+    model's; JAX's int8 bar, tests/test_quant.py), z1 within 5 % + 1."""
+    from horizonnet_tpu_torch.cli.inference import main
+
+    _, want = golden
+    args = ["--pth", CKPT, "--img_glob", os.path.join(FIXDIR, "val_room.png"),
+            "--output_dir", str(tmp_path), "--force_cuboid", "--quant_int8",
+            "--device", "cpu", *extra]
+    assert main(args) == 0
+    with open(tmp_path / "val_room.json") as f:
+        got = json.load(f)
+    assert len(got["uv"]) == 8
+    dpx = np.abs(np.asarray(got["uv"]) - want["cuboid_uv"]).max() * 512
+    assert dpx < 4.0, f"int8 CLI corners off golden by {dpx:.2f}px"
+    z1 = float(want["cuboid_z1"])
+    assert abs(got["z1"] - z1) < 0.05 * abs(z1) + 1.0
+    with pytest.raises(ValueError, match="s2d_stem"):
+        main(args + ["--s2d_stem"])
+
+
 @pytest.mark.parametrize("extra,match", [
     (["--device_postproc", "--profile_dir", "trace"], "item 11"),
-    (["--device_postproc", "--force_cuboid", "--quant_int8"], "item 7"),
 ])
 def test_cli_refuses_paths_still_to_port(extra, match, tmp_path):
     from horizonnet_tpu_torch.cli.inference import main

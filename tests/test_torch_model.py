@@ -198,5 +198,7 @@ def test_build_model_contract():
     assert not torch.equal(m.state_dict()[w], other.state_dict()[w])
     with pytest.raises(ValueError, match="unknown backbone"):
         build_model("vgg16", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        build_model("densenet121", device="cpu")
+    dense = build_model("densenet121", True, device="cpu")
+    assert dense.bi_rnn.weight_ih_l0.shape == (2048, 896)
+    assert "feature_extractor.encoder.features.conv0.1.weight" in \
+        dense.state_dict()

@@ -37,7 +37,8 @@ def random_variables(backbone, use_rnn, seed=0):
 
 
 CASES = [("resnet18", True), ("resnet18", False), ("resnet34", True),
-         ("resnet50", True), ("resnext50_32x4d", True)]
+         ("resnet50", True), ("resnext50_32x4d", True),
+         ("densenet121", True)]
 
 
 @pytest.mark.parametrize("backbone,use_rnn", CASES)
