@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases host dynamics train_cli  # host path,
                                                             # validation
     python3 chip_smoke.py --phases kernel densenet quant    # model options
+    python3 chip_smoke.py --phases preprocess               # VP alignment
 
 Phases; any failed check makes the script exit non-zero:
   kernel    build K1 (csrc/bilstm_fwd.cu), the training pair K2/K3
@@ -129,15 +130,39 @@ Phases; any failed check makes the script exit non-zero:
             1 (JAX's bar, tests/test_quant.py); the inference CLI with
             --quant_int8 --force_cuboid, host path and --device_postproc,
             within 4 px of golden_outputs.npz.
+  preprocess
+            the VP-alignment branch: lsd, merge, vote and warp built with
+            g++ from the checkout into build/preprocess/ (each must load
+            from there; the host warp must be the C++ one, not its numpy
+            twin); the device backend's warps on the card against the host
+            backend at 512x1024 on val_room (view grays within 0.15, RGB
+            views 0.2, float rotation mean 0.05, uint8 rotation under 1 %
+            of values: the JAX package's bars between its backends), each
+            timed on both; python -m horizonnet_tpu_torch.cli.preprocess
+            on val_room and two rotations of it by a known R (yaw/tilt
+            (20, 8), (-35, 5)) with the default --device cuda, then with
+            HORIZONNET_PREPROCESS_BACKEND=host, then --rgbonly: every
+            output written at 512x1024x3 uint8, the backends' VP rows
+            within 0.05 deg, the vertical VP within 0.1 deg of R vp0 and
+            the horizontals within 1.5 deg; preprocess s/pano one at a
+            time with the per-stage split, each backend; then the chain
+            (bench.py's e2e recipe): 64 raw panos (the three rooms rolled
+            by random columns, seed 1) VP-aligned on min(8, cpu) threads
+            and served in batches of 8 through the flagship's engine
+            (resnet50_rnn bf16, dct4, cuboid, serve_stream depth 2), host
+            and device backends in turns, 3 runs each: e2e panos/s, finite
+            corners, K1 launched, and a pano without a VP (served as it
+            came) the same in every run of a backend.
 
 Before the last line it prints the card's name and power limit, and one
 JSON line {"kernels": [...]} with each kernel's launches on the paths
 that run it, summed (K1: the flagship, densenet121 and int8 serving
-runs; K2, K3: the resnet50 and densenet121 train runs; K4: the fused
-run; each counted from 0 just before its run, and logged by path), its
-error against the twin, its time beside the twin's, its bound and the
-library call's time. K4's times and bound are summed over the 12 calls
-of one resnet50 forward (2, 3, 5 and 2 at the four stage shapes).
+runs and the preprocess chain; K2, K3: the resnet50 and densenet121 train
+runs; K4: the fused run; each counted from 0 just before its run, and
+logged by path), its error against the twin, its time beside the twin's,
+its bound and the library call's time. K4's times and bound are summed
+over the 12 calls of one resnet50 forward (2, 3, 5 and 2 at the four stage
+shapes).
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no
 result.
@@ -155,7 +180,8 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, "tests", "fixtures", "golden")
 PHASES = ("kernel", "golden", "flagship", "fused", "general", "cli", "host",
-          "train", "train_cli", "dynamics", "densenet", "quant")
+          "train", "train_cli", "dynamics", "densenet", "quant",
+          "preprocess")
 # H100 SXM peaks: f32 outside the tensor cores, bf16 dense on the tensor
 # cores, and HBM3
 PEAK_F32_FLOPS = 67e12
@@ -770,10 +796,11 @@ def _flagship_wire(state, B=FLAGSHIP_B, n_distinct=3):
 
 
 def _flagship_engine(postproc, fused_blocks="", backbone="resnet50",
-                     quant_int8=False):
-    """resnet50_rnn (or ``backbone``), bf16, the flagship batch, dct4
-    wire, random weights (seed 0); ``quant_int8``: the int8 encoder on the
-    same float weights folded by models/quant.py::quantize_state_dict."""
+                     quant_int8=False, batch_size=FLAGSHIP_B):
+    """resnet50_rnn (or ``backbone``), bf16, the flagship batch (or
+    ``batch_size``), dct4 wire, random weights (seed 0); ``quant_int8``:
+    the int8 encoder on the same float weights folded by
+    models/quant.py::quantize_state_dict."""
     import torch
     from horizonnet_tpu_torch.inference import InferenceEngine
     from horizonnet_tpu_torch.models import build_model
@@ -786,7 +813,7 @@ def _flagship_engine(postproc, fused_blocks="", backbone="resnet50",
     if quant_int8:
         sd = quantize_state_dict(sd)
         model = build_model(backbone, True, quant_int8=True, **kw)
-    return InferenceEngine(model, sd, batch_size=FLAGSHIP_B,
+    return InferenceEngine(model, sd, batch_size=batch_size,
                            postproc=postproc, input_format="dct4",
                            device="cuda")
 
@@ -1913,6 +1940,306 @@ def phase_quant(state):
               f"--quant_int8 CLI ({mode}) z1 off by {dz1}")
 
 
+PRE_ROTATIONS = {"room": (0, 0), "yaw20_tilt8": (20, 8),
+                 "yaw-35_tilt5": (-35, 5)}
+PRE_STAGES = ("cut_views", "lsd", "lift", "merge", "hough", "refit",
+              "rotate")
+
+
+def _yaw_tilt(yaw, tilt):
+    import numpy as np
+
+    a, b = np.radians(yaw), np.radians(tilt)
+    return np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0],
+                     [0, 0, 1]]) @ np.array([[1, 0, 0],
+                                             [0, np.cos(b), -np.sin(b)],
+                                             [0, np.sin(b), np.cos(b)]])
+
+
+def _vp_deg(a, b):
+    """Degrees between the directions of rows a and b, up to sign
+    (broadcasts). By atan2: the rows are read from "%.6f" text, and arccos
+    of a dot product a rounding below 1 would read 0.06 deg."""
+    import numpy as np
+
+    a = a / np.linalg.norm(a, axis=-1, keepdims=True)
+    b = b / np.linalg.norm(b, axis=-1, keepdims=True)
+    a, b = np.broadcast_arrays(a, b)
+    return np.degrees(np.arctan2(np.linalg.norm(np.cross(a, b), axis=-1),
+                                 np.abs((a * b).sum(-1))))
+
+
+def _vp_rows_deg(a, b):
+    """Degrees from each VP row of a to b's: the vertical (row 0) to b's
+    vertical, each horizontal (rows 1, 2) to the nearer of b's two, whose
+    order flips where the canonical ordering's test nearly ties (a room at
+    45 deg of yaw: find_main_direction sorts them by |sin u|)."""
+    return [float(_vp_deg(a[0], b[0]))] + [float(_vp_deg(a[k], b[1:3]).min())
+                                           for k in (1, 2)]
+
+
+def _wall_ms(fn, reps=5):
+    """Median wall milliseconds of fn() (which ends on the host)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _preprocess_warps(room):
+    """The device backend's warps on the card against the host backend at
+    512x1024, at the JAX package's bars between its two backends; each
+    timed on both (wall ms, transfers included: what the pipeline pays)."""
+    import numpy as np
+    from horizonnet_tpu_torch.preprocess import rotate, views
+
+    R = _yaw_tilt(20, 8)
+    f64, f32 = room.astype(np.float64), room.astype(np.float32)
+    cases = (
+        ("cut_views_gray", lambda b: views.cut_views_gray(
+            room, backend=b, device="cuda"),
+         lambda d, h: np.abs(d.astype(np.float32) - h).max(), 0.15, "max"),
+        ("cut_views", lambda b: views.cut_views(f64, backend=b,
+                                                device="cuda"),
+         lambda d, h: np.abs(d - h).max(), 0.2, "max"),
+        ("rotate_panorama", lambda b: rotate.rotate_panorama(
+            f32, R=R, backend=b, device="cuda"),
+         lambda d, h: np.abs(d - h).mean(), 0.05, "mean"),
+        ("rotate_panorama_uint8", lambda b: rotate.rotate_panorama_uint8(
+            room, R=R, backend=b, device="cuda"),
+         lambda d, h: (d != h).mean(), 0.01, "share of values"))
+    for name, fn, err, bar, kind in cases:
+        dev, host = fn("device"), fn("host")
+        check(dev.shape == host.shape, f"{name}: {dev.shape} {host.shape}")
+        e = float(err(dev, host))
+        ms_d, ms_h = _wall_ms(lambda: fn("device")), _wall_ms(
+            lambda: fn("host"))
+        log(f"preprocess warp {name} {tuple(dev.shape)}: card against host "
+            f"{kind} difference {e:.6g} (bar {bar}); device backend "
+            f"{ms_d:.3f} ms, host backend {ms_h:.3f} ms (wall, median of 5)")
+        check(e < bar, f"{name}: card against host {e} over {bar}")
+
+
+def _preprocess_cli(raw_dir, out_root):
+    """python -m horizonnet_tpu_torch.cli.preprocess on the raw rooms: the
+    default (--device cuda: the device backend) and the host backend by
+    HORIZONNET_PREPROCESS_BACKEND, each in its own process; then --rgbonly
+    through the CLI's main() in this one (a process takes ~10 s to start).
+    Returns the VP rows of each backend by room."""
+    import numpy as np
+    from horizonnet_tpu_torch.cli import preprocess
+    from horizonnet_tpu_torch.utils.image import read_png
+
+    vps = {}
+    for run in ("device", "host", "rgbonly"):
+        out = os.path.join(out_root, run)
+        flags = ["--img_glob", os.path.join(raw_dir, "*.png"),
+                 "--output_dir", out]
+        t0 = time.perf_counter()
+        if run == "rgbonly":
+            check(preprocess.main(flags + ["--rgbonly"]) == 0,
+                  "preprocess CLI --rgbonly failed")
+        else:
+            env = dict(os.environ, PYTHONPATH=REPO)
+            env.pop("HORIZONNET_PREPROCESS_BACKEND", None)
+            if run == "host":
+                env["HORIZONNET_PREPROCESS_BACKEND"] = "host"
+            proc = subprocess.run(
+                [sys.executable, "-m", "horizonnet_tpu_torch.cli.preprocess",
+                 *flags, "--profile"], cwd=REPO, env=env,
+                capture_output=True, text=True, timeout=600)
+            check(proc.returncode == 0, f"preprocess CLI ({run}) failed "
+                  f"({proc.returncode}):\n{proc.stderr[-4000:]}")
+        log(f"preprocess CLI ({run}): {time.perf_counter() - t0:.1f} s for "
+            f"{len(PRE_ROTATIONS)} panos"
+            + ("" if run == "rgbonly" else ", process start included"))
+        kinds = [""] if run == "rgbonly" else ["_aligned_rgb",
+                                               "_aligned_line"]
+        for name in PRE_ROTATIONS:
+            for kind in kinds:
+                img = read_png(os.path.join(out, f"{name}{kind}.png"))
+                check(img.shape == (512, 1024, 3) and img.dtype == np.uint8,
+                      f"preprocess CLI ({run}) {name}{kind}.png: "
+                      f"{img.shape} {img.dtype}")
+            if run != "rgbonly":
+                vps.setdefault(run, {})[name] = np.loadtxt(
+                    os.path.join(out, f"{name}_VP.txt"))
+    return vps
+
+
+def phase_preprocess(state):
+    """The preprocess branch on the card: native builds, the warps card
+    against host, the CLI on raw panos with the VP checks, and the chained
+    raw -> aligned -> corners pipeline, host and device backends in
+    turns."""
+    import numpy as np
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+    from horizonnet_tpu_torch.inference import serve_stream
+    from horizonnet_tpu_torch.ops import cuda_lstm
+    from horizonnet_tpu_torch.ops.dct import pack_dct4
+    from horizonnet_tpu_torch.postproc import unpack_cuboid_outputs
+    from horizonnet_tpu_torch.preprocess import (_build, host_resample, lsd,
+                                                 native)
+    from horizonnet_tpu_torch.preprocess import (pano_edge_detection,
+                                                 rotate_panorama_uint8)
+    from horizonnet_tpu_torch.utils.image import write_png
+    from horizonnet_tpu_torch.utils.profiling import stage_timer
+
+    t0 = time.perf_counter()
+    libs = {"lsd": lsd._load(), "merge": native._load(),
+            "vote": native._load_vote(), "warp": host_resample._warp()}
+    check(libs["warp"] is not None, "warp.cpp did not build: the host "
+          "backend would run its numpy twin")
+    for name, lib in libs.items():
+        check(os.path.dirname(lib._name) == _build.BUILD_DIR,
+              f"{name}: loaded {lib._name}, not a build of the checkout")
+    log(f"preprocess native builds (g++ from the checkout into "
+        f"build/preprocess/): {time.perf_counter() - t0:.1f} s, "
+        + ", ".join(os.path.basename(lib._name) for lib in libs.values()))
+
+    room, _ = _golden_inputs()
+    _preprocess_warps(room)
+
+    raws = {n: (room if n == "room" else host_resample
+                .rotate_panorama_uint8_host(room, R=_yaw_tilt(*yt)))
+            for n, yt in PRE_ROTATIONS.items()}
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as d:
+        raw_dir = os.path.join(d, "raw")
+        os.makedirs(raw_dir)
+        for name, pano in raws.items():
+            write_png(os.path.join(raw_dir, f"{name}.png"), pano)
+        vps = _preprocess_cli(raw_dir, d)
+    vp0 = vps["device"]["room"]
+    for name, yt in PRE_ROTATIONS.items():
+        dev, host = vps["device"][name], vps["host"][name]
+        between = max(_vp_rows_deg(dev, host))
+        vert, *horiz = _vp_rows_deg(dev, vp0 @ _yaw_tilt(*yt).T)
+        log(f"preprocess CLI VP {name}: device against host backend "
+            f"{between:.6f} deg (bar 0.05); against R vp0: vertical "
+            f"{vert:.4f} deg (bar 0.1), horizontals "
+            f"{horiz[0]:.4f}, {horiz[1]:.4f} deg (bar 1.5)")
+        check(between < 0.05, f"{name}: backends' VPs {between} deg apart")
+        check(vert < 0.1, f"{name}: vertical VP {vert} deg from R vp0")
+        check(max(horiz) < 1.5, f"{name}: horizontal VP {horiz} deg off")
+
+    # the chain (bench.py's e2e recipe): a thread pool VP-aligns raw panos
+    # while serve_stream keeps the card fed with batches of 8
+    B, n_panos, reps = 8, 64, 3
+    W = room.shape[1]
+    rng = np.random.default_rng(1)
+    bases = list(raws.values())
+    panos = [np.roll(bases[i % len(bases)], int(r), axis=1)
+             for i, r in enumerate(rng.integers(0, W, n_panos))]
+    workers = min(8, os.cpu_count() or 1)
+    eng = _flagship_engine("cuboid", batch_size=B)
+
+    def preprocess_one(pano, backend):
+        """(aligned pano, VP found). Where the room's 2-3 lines give no
+        orthogonal triple (2 of these 64 panos on the CPU, in the JAX
+        package too), the CLI skips the pano with a warning; the chain
+        serves it as it came, and counts it."""
+        r = pano_edge_detection(pano, want_pano_edge=False, lsd_workers=1,
+                                backend=backend, device="cuda")
+        if r["vp"] is None:
+            return pano, False
+        with stage_timer("preprocess/rotate"):
+            return rotate_panorama_uint8(pano, r["vp"][2::-1],
+                                         backend=backend,
+                                         device="cuda"), True
+
+    def finish(outs):
+        cid, z1 = unpack_cuboid_outputs(outs)
+        check(cid.shape == (B, 8, 2) and bool(np.isfinite(cid).all()
+                                              and np.isfinite(z1).all()),
+              "chain result not finite")
+        return cid
+
+    def chain(backend):
+        results, found = [], []
+        t = time.perf_counter()
+        with ThreadPoolExecutor(workers) as pool:
+            aligned = pool.map(lambda p: preprocess_one(p, backend), panos)
+
+            def feed():
+                buf = []
+                for a, ok in aligned:
+                    found.append(ok)
+                    buf.append(a)
+                    if len(buf) == B:
+                        yield pack_dct4(np.stack(buf))
+                        buf = []
+
+            for res in serve_stream(eng, feed(), depth=2, finish=finish):
+                results.extend(res)
+        rate = n_panos / (time.perf_counter() - t)
+        check(len(results) == n_panos, f"chain returned {len(results)}")
+        return rate, tuple(i for i, ok in enumerate(found) if not ok)
+
+    single, split = {}, {}
+    for backend in ("host", "device"):
+        check(preprocess_one(panos[0], backend)[1],  # warm, untimed
+              "VP detection failed on the warm-up pano")
+        before = dict(stage_timer.totals)
+        times = []
+        for p in panos[1:9]:
+            t = time.perf_counter()
+            preprocess_one(p, backend)
+            times.append(time.perf_counter() - t)
+        single[backend] = statistics.median(times)
+        split[backend] = {
+            k: (stage_timer.totals[f"preprocess/{k}"]
+                - before.get(f"preprocess/{k}", 0.0)) / len(times) * 1e3
+            for k in PRE_STAGES}
+        log(f"preprocess_s_per_pano ({backend} backend, one pano at a time, "
+            f"lsd_workers=1, median of {len(times)} warm panos): "
+            f"{single[backend]:.4f} s; per stage ms a pano: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in split[backend].items()))
+
+    eng(pack_dct4(np.stack([room] * B)))            # warm the engine
+    torch.cuda.synchronize()
+    rates = {"host": [], "device": []}
+    misses = {"host": set(), "device": set()}
+    stages = {b: dict.fromkeys(PRE_STAGES, 0.0) for b in rates}
+    cuda_lstm.launches = 0
+    for _ in range(reps):
+        for backend in ("host", "device"):
+            before = dict(stage_timer.totals)
+            rate, missed = chain(backend)
+            rates[backend].append(rate)
+            misses[backend].add(missed)
+            for k in PRE_STAGES:
+                stages[backend][k] += (
+                    stage_timer.totals[f"preprocess/{k}"]
+                    - before.get(f"preprocess/{k}", 0.0)) / reps / n_panos
+    launches = cuda_lstm.launches
+    for backend, seen in misses.items():
+        # one backend sees the same panos in every run, and the pipeline is
+        # deterministic: a miss that moves between runs would be a race
+        check(len(seen) == 1, f"the chain's {backend} runs found no VP on "
+              f"different panos: {sorted(seen)}")
+        log(f"chain ({backend} backend): no VP found (served as they came) "
+            f"on {len(next(iter(seen)))} of {n_panos} panos, the same in "
+            f"every run: {list(next(iter(seen)))}")
+    _launched(state, "bilstm_fwd", "preprocess chain", launches)
+    log(f"e2e_panos_per_sec (raw -> VP align on {workers} threads -> "
+        f"resnet50_rnn bf16 B={B} dct4 cuboid, serve_stream depth 2, "
+        f"{n_panos} panos a run, backends in turns): host "
+        f"{statistics.median(rates['host']):.2f} (runs "
+        f"{[round(v, 2) for v in rates['host']]}), device "
+        f"{statistics.median(rates['device']):.2f} (runs "
+        f"{[round(v, 2) for v in rates['device']]}); K1 launches "
+        f"{launches} [{state['card']}]")
+    for backend, split in stages.items():
+        log(f"chain ({backend} backend) per stage ms a pano in its thread, "
+            f"beside {workers - 1} others: "
+            + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in split.items()))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", nargs="+", default=list(PHASES),
@@ -1928,6 +2255,7 @@ def main(argv=None):
               file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    t_run = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1969,7 +2297,8 @@ def main(argv=None):
               "general": phase_general, "cli": phase_cli,
               "host": phase_host, "train": phase_train,
               "train_cli": phase_train_cli, "dynamics": phase_dynamics,
-              "densenet": phase_densenet, "quant": phase_quant}
+              "densenet": phase_densenet, "quant": phase_quant,
+              "preprocess": phase_preprocess}
     for name in args.phases:
         t0 = time.perf_counter()
         log(f"== phase {name}")
@@ -1978,6 +2307,7 @@ def main(argv=None):
 
     log(f"launches by path (each counted from 0 just before its run; the "
         f"kernels line sums them): {json.dumps(state['launches'])}")
+    log(f"whole run: {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": list(state["kernels"].values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

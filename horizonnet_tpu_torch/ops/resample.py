@@ -32,3 +32,13 @@ def bilinear_wrap_sample(img, coords_y, coords_x):
     top = tap(y0i, x0i) * (1 - wx) + tap(y0i, x1i) * wx
     bot = tap(y1i, x0i) * (1 - wx) + tap(y1i, x1i) * wx
     return top * (1 - wy) + bot * wy
+
+
+def bilinear_wrap_sample_one(img, coords_y, coords_x):
+    """Sample one image ``img`` [H, W] or [H, W, C] at float coords of any
+    matching shape S with periodic wrap. Returns S (+ [C]): the unbatched
+    form of horizonnet_tpu/ops/resample.py, which the preprocess warps
+    call, through the batched sampler above."""
+    out = bilinear_wrap_sample(
+        img.reshape(1, *img.shape[:2], -1), coords_y[None], coords_x[None])
+    return out[0] if img.ndim == 3 else out[0, ..., 0]

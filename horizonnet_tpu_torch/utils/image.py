@@ -4,7 +4,8 @@ PNG files decode here with zlib and numpy alone, so the CLIs run on hosts
 without Pillow; other formats, and panos that need resizing to the
 1024x512 input contract, go through Pillow (imported on that path only),
 as the JAX CLI does (horizonnet_tpu/cli/inference.py:124-130).
-``write_png`` writes the 8-bit RGB PNGs of synthetic datasets.
+``write_png`` writes the 8-bit RGB PNGs of synthetic datasets and of the
+preprocess CLIs.
 """
 
 import struct
@@ -83,8 +84,9 @@ def read_png(path):
     return img.reshape(H, W, bpp)
 
 
-def write_png(path, img):
-    """uint8 [H, W, 3] -> an 8-bit RGB PNG (filter 0 on every row)."""
+def write_png(path, img, level=6):
+    """uint8 [H, W, 3] -> an 8-bit RGB PNG (filter 0 on every row), zlib
+    at ``level`` (1 is fastest)."""
     img = np.ascontiguousarray(img, np.uint8)
     H, W, C = img.shape
     if C != 3:
@@ -99,7 +101,8 @@ def write_png(path, img):
     with open(path, "wb") as f:
         f.write(_PNG_SIG + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 2,
                                                       0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+                + chunk(b"IDAT", zlib.compress(raw, level))
+                + chunk(b"IEND", b""))
 
 
 def load_pano(path, size=(1024, 512)):
