@@ -8,6 +8,7 @@
                                                             # validation
     python3 chip_smoke.py --phases kernel densenet quant    # model options
     python3 chip_smoke.py --phases preprocess               # VP alignment
+    python3 chip_smoke.py --phases eval                     # evals, tools
 
 Phases; any failed check makes the script exit non-zero:
   kernel    build K1 (csrc/bilstm_fwd.cu), the training pair K2/K3
@@ -153,11 +154,33 @@ Phases; any failed check makes the script exit non-zero:
             and device backends in turns, 3 runs each: e2e panos/s, finite
             corners, K1 launched, and a pano without a VP (served as it
             came) the same in every run of a backend.
+  eval      the reference's evaluation flow: 16 copies of val_room (the
+            first unrolled, the others rolled by columns drawn from seed 1)
+            with their labels rolled the same way (val_room_cor.txt, and
+            for the cuboid metrics its plan bounding box as an 8-corner
+            cuboid); python -m horizonnet_tpu_torch.cli.inference on them
+            (the golden checkpoint, host postprocess, f32, TF32 off), with
+            and without --force_cuboid; the eval_cuboid and eval_general
+            CLIs print what evals.test_cuboid / test_general print in this
+            process on the same files, and the unrolled pano's 3DIoU is
+            within 2.0 points of the CPU's from golden_outputs.npz; the
+            cuboid run with --profile_dir, then --device_postproc (general)
+            with --profile_dir: each trace parses and holds the serve/*
+            spans of its path and K1 kernel events (a trace without them is
+            taken again, up to 3 times); layout_viewer (--out, --html,
+            --vis_out) on the card's JSON and the CPU's: the same PLY
+            counts, a canvas, a preview that decodes; dataset_vis: the
+            card's strips equal the CPU's, and with every augmentation the
+            warp runs on the card; horizonnet_tpu_torch/tools/
+            trace_serving.py 64 dct4 cuboid 12: the flagship's batch by
+            kernel, K1 among them, and the device-busy share.
 
 Before the last line it prints the card's name and power limit, and one
 JSON line {"kernels": [...]} with each kernel's launches on the paths
 that run it, summed (K1: the flagship, densenet121 and int8 serving
-runs and the preprocess chain; K2, K3: the resnet50 and densenet121 train
+runs, the preprocess chain and the eval phase's inference CLI runs, each
+in a fresh process that reports its count; K2, K3: the resnet50 and
+densenet121 train
 runs; K4: the fused run; each counted from 0 just before its run, and
 logged by path), its error against the twin, its time beside the twin's,
 its bound and the library call's time. K4's times and bound are summed
@@ -181,7 +204,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, "tests", "fixtures", "golden")
 PHASES = ("kernel", "golden", "flagship", "fused", "general", "cli", "host",
           "train", "train_cli", "dynamics", "densenet", "quant",
-          "preprocess")
+          "preprocess", "eval")
 # H100 SXM peaks: f32 outside the tensor cores, bf16 dense on the tensor
 # cores, and HBM3
 PEAK_F32_FLOPS = 67e12
@@ -2240,6 +2263,344 @@ def phase_preprocess(state):
             + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in split.items()))
 
 
+EVAL_N = 16
+EVAL_CLI = "horizonnet_tpu_torch.cli.inference"
+
+
+def _rolled_cor(cor, r, W=1024):
+    """A corner label of a pano rolled by r columns: x shifted modulo W,
+    the ceiling/floor pairs back in ascending-x order (the label files')."""
+    import numpy as np
+
+    cor = np.array(cor, np.float64)
+    cor[:, 0] = (cor[:, 0] + r) % W
+    pairs = cor.reshape(-1, 2, 2)
+    return pairs[np.argsort(pairs[:, 0, 0], kind="stable")].reshape(-1, 2)
+
+
+def _plan_box_cuboid(cor, H=512, W=1024, floor_z=-1.6):
+    """The cuboid label of a general one: val_room's label is an L-shaped
+    room of 6 corners, and the cuboid metrics take 8 (the JAX and the
+    port's test_cuboid stop at the corner error's shapes on it). The cuboid
+    is the bounding box of its floor ring in the plan, at the floor and
+    the mean ceiling height of the label, in pixels, ordered by x."""
+    import numpy as np
+    from horizonnet_tpu_torch.geometry.equirect_host import (coor2xy,
+                                                             coory2v_up,
+                                                             xy2coor)
+
+    cor = np.asarray(cor, np.float64)
+    floor = coor2xy(cor[1::2], floor_z, W, H, floorW=1, floorH=1)
+    ceil_z = float((np.sqrt((floor ** 2).sum(1))
+                    * np.tan(coory2v_up(cor[0::2, 1], H))).mean())
+    (x0, y0), (x1, y1) = floor.min(0), floor.max(0)
+    box = np.array([[x0, y0], [x1, y0], [x1, y1], [x0, y1]])
+    out = np.zeros((8, 2))
+    out[0::2] = xy2coor(box, ceil_z, W, H, floorW=1, floorH=1)
+    out[1::2] = xy2coor(box, floor_z, W, H, floorW=1, floorH=1)
+    return _rolled_cor(out, 0, W)
+
+
+def _cli_counted(args, env):
+    """``python -m horizonnet_tpu_torch.cli.inference args`` (runpy runs
+    the module as __main__, as -m does), in a fresh process that reports
+    K1's launch count, from 0, when it exits: (seconds, K1 launches)."""
+    code = "\n".join([
+        "import runpy, sys",
+        "from horizonnet_tpu_torch.ops import cuda_lstm",
+        "try:",
+        f"    runpy.run_module({EVAL_CLI!r}, run_name='__main__', "
+        "alter_sys=True)",
+        "finally:",
+        "    print(f'K1_LAUNCHES {cuda_lstm.launches}', file=sys.stderr)"])
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code, *args], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    dt = time.perf_counter() - t0
+    check(proc.returncode == 0, f"inference CLI {args[-3:]} failed "
+          f"({proc.returncode}):\n{proc.stderr[-4000:]}")
+    n = [int(line.split()[1]) for line in proc.stderr.splitlines()
+         if line.startswith("K1_LAUNCHES ")]
+    check(len(n) == 1, "the inference CLI did not report K1's launches")
+    return dt, n[0]
+
+
+def _eval_stdout(kind, dt_glob, gt_glob):
+    """What eval_cuboid / eval_general print, from evals.test_cuboid /
+    test_general called in this process on the same files."""
+    import contextlib
+    import io
+
+    import numpy as np
+    from horizonnet_tpu_torch.evals import (new_general_losses,
+                                            prepare_gtdt_pairs,
+                                            summarize_general, test_cuboid,
+                                            test_general)
+
+    losses = ({"CE": [], "PE": [], "3DIoU": []} if kind == "cuboid"
+              else new_general_losses())
+    per_pano = []
+    for gt_path, dt_path in prepare_gtdt_pairs(gt_glob, dt_glob):
+        with open(gt_path) as f:
+            gt_cor_id = np.array([line.split() for line in f], np.float32)
+        with open(dt_path) as f:
+            dt = json.load(f)
+        dt_cor_id = np.array(dt["uv"], np.float32)
+        dt_cor_id[:, 0] *= 1024
+        dt_cor_id[:, 1] *= 512
+        if kind == "cuboid":
+            test_cuboid(dt_cor_id, dt["z0"], dt["z1"], gt_cor_id, 1024, 512,
+                        losses)
+            per_pano.append(losses["3DIoU"][-1])
+        else:
+            test_general(dt_cor_id, gt_cor_id, 1024, 512, losses,
+                         gt_path=gt_path)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        if kind == "cuboid":
+            print(" Testing Result ".center(50, "="))
+            print("Corner Error (%):", np.mean(losses["CE"]))
+            print("Pixel  Error (%):", np.mean(losses["PE"]))
+            print("3DIoU        (%):", np.mean(losses["3DIoU"]))
+            print("=" * 50)
+        else:
+            summarize_general(losses)
+    return out.getvalue(), per_pano
+
+
+def _trace_check(trace_dir, spans, name):
+    """The Chrome trace in trace_dir: it parses, holds ``spans``; returns
+    the number of its K1 kernel events (recurrence_bf16/f32)."""
+    import glob
+
+    paths = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    check(len(paths) == 1, f"{name}: {len(paths)} traces in {trace_dir}")
+    with open(paths[0]) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name") for e in events}
+    check(spans <= names, f"{name}: spans {sorted(spans - names)} missing "
+          "from the trace")
+    kernels = [str(e.get("name", "")) for e in events
+               if e.get("cat") == "kernel"]
+    k1 = [k for k in kernels if "recurrence_" in k]
+    log(f"{name}: {len(kernels)} kernel events in the trace"
+        + (f", K1 as {k1[0][:80]!r}" if k1 else ""))
+    return len(k1)
+
+
+def phase_eval(state):
+    """The eval flow on the card: the inference CLI on rolled copies of the
+    golden pano, the eval CLIs against in-process metrics, --profile_dir
+    traces, layout_viewer, dataset_vis and trace_serving."""
+    import contextlib
+    import io
+
+    import numpy as np
+    from horizonnet_tpu_torch.cli import dataset_vis, layout_viewer
+    from horizonnet_tpu_torch.data import dataset as ds_mod
+    from horizonnet_tpu_torch.evals import test_cuboid
+    from horizonnet_tpu_torch.utils.image import read_png, write_png
+
+    card = state["card"]
+    img, want = _golden_inputs()
+    gt = np.loadtxt(os.path.join(GOLDEN, "val_room_cor.txt"))
+    gt_cuboid = _plan_box_cuboid(gt)
+    rolls = [0] + [int(r) for r in
+                   np.random.default_rng(1).integers(1, 1024, EVAL_N - 1)]
+    env = dict(os.environ, PYTHONPATH=REPO, NVIDIA_TF32_OVERRIDE="0")
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    launches = 0
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as d:
+        def sub(*parts):
+            return os.path.join(d, *parts)
+
+        for name in ("img", "gt_cuboid", "gt_general"):
+            os.makedirs(sub(name))
+        for i, r in enumerate(rolls):
+            write_png(sub("img", f"p{i:02d}.png"), np.roll(img, r, axis=1))
+            for name, cor in (("gt_cuboid", gt_cuboid), ("gt_general", gt)):
+                np.savetxt(sub(name, f"p{i:02d}.txt"), _rolled_cor(cor, r),
+                           fmt="%.4f")
+
+        # the inference CLI on the card: the host postprocess, f32, TF32 off
+        base = ["--pth", os.path.join(GOLDEN, "resnet18_rnn_synth.ckpt"),
+                "--img_glob", sub("img", "*.png"), "--device", "cuda"]
+        wall = {}
+        for mode, extra in (("cuboid", ["--force_cuboid"]), ("general", [])):
+            wall[mode], n = _cli_counted(
+                base + extra + ["--output_dir", sub(f"out_{mode}")], env)
+            launches += n
+            check(len(os.listdir(sub(f"out_{mode}"))) == EVAL_N,
+                  f"inference CLI {mode} wrote "
+                  f"{len(os.listdir(sub(f'out_{mode}')))} JSONs")
+        log(f"eval inference CLI (resnet18_rnn golden ckpt, f32, TF32 off, "
+            f"host postprocess, {EVAL_N} panos, process start included): "
+            f"cuboid {wall['cuboid']:.2f} s, general {wall['general']:.2f} "
+            f"s; K1 launches {launches}")
+
+        # the eval CLIs against the metrics computed in this process
+        for cli, mode, gt_dir in (("eval_cuboid", "cuboid", "gt_cuboid"),
+                                  ("eval_general", "general", "gt_general"),
+                                  ("eval_general", "cuboid", "gt_general")):
+            dt_glob, gt_glob = sub(f"out_{mode}", "*.json"), sub(gt_dir,
+                                                                 "*.txt")
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", f"horizonnet_tpu_torch.cli.{cli}",
+                 "--dt_glob", dt_glob, "--gt_glob", gt_glob], cwd=REPO,
+                env=env, capture_output=True, text=True, timeout=600)
+            t_cli = time.perf_counter() - t0
+            check(proc.returncode == 0, f"{cli} failed ({proc.returncode}):"
+                  f"\n{proc.stderr[-4000:]}")
+            t0 = time.perf_counter()
+            kind = "cuboid" if cli == "eval_cuboid" else "general"
+            here, per_pano = _eval_stdout(kind, dt_glob, gt_glob)
+            t_here = time.perf_counter() - t0
+            check(proc.stdout == here, f"{cli} on {mode} printed another "
+                  f"result than in-process:\n{proc.stdout}\n{here}")
+            check("nan" not in here.lower(), f"{cli} on {mode}: {here}")
+            log(f"{cli} on the card's {mode} JSONs against {gt_dir} "
+                f"(equal to in-process, to print precision):")
+            for line in here.strip().splitlines():
+                log(f"  {line}")
+            log(f"{cli}: {t_cli / EVAL_N:.4f} s a pano through the CLI "
+                f"(process start included), {t_here / EVAL_N * 1e3:.2f} ms "
+                f"a pano in-process [{card}]")
+            if cli == "eval_cuboid":
+                cpu = {"CE": [], "PE": [], "3DIoU": []}
+                test_cuboid((want["cuboid_uv"] * [1024, 512]).astype(
+                    np.float32), 50.0, float(want["cuboid_z1"]),
+                    gt_cuboid.astype(np.float32), 1024, 512, cpu)
+                diff = abs(per_pano[0] - cpu["3DIoU"][0])
+                log(f"golden pano 3DIoU against its cuboid label: card "
+                    f"{per_pano[0]:.4f}, CPU golden_outputs.npz "
+                    f"{cpu['3DIoU'][0]:.4f} ({diff:.4f} points apart; bar "
+                    "2.0); rolled copies "
+                    f"{min(per_pano):.4f}-{max(per_pano):.4f}")
+                check(diff < 2.0, f"golden 3DIoU {per_pano[0]} is {diff} "
+                      f"points from the CPU's {cpu['3DIoU'][0]}")
+
+        # --profile_dir: the host path (cuboid) and the device postprocess
+        # (general, the tail on serve_stream's worker threads)
+        prof_wall = {}
+        for name, extra, spans in (
+                ("cuboid", ["--force_cuboid"],
+                 {"serve/ingest", "serve/forward+postproc"}),
+                ("device_postproc general", ["--device_postproc"],
+                 {"serve/ingest", "serve/general_finish"})):
+            for attempt in range(3):
+                trace = sub(f"trace_{len(prof_wall)}_{attempt}")
+                t, n = _cli_counted(base + extra + [
+                    "--output_dir", sub(f"prof_{len(prof_wall)}"),
+                    "--profile_dir", trace], env)
+                launches += n
+                k1 = _trace_check(trace, spans, f"--profile_dir {name}")
+                log(f"--profile_dir {name}: spans {sorted(spans)} present, "
+                    f"{k1} K1 kernel events for {n} launches ({t:.2f} s)")
+                if k1:
+                    break
+            check(k1 > 0, f"--profile_dir {name}: 3 traces without a K1 "
+                  "kernel event")
+            prof_wall[name] = t
+        log(f"inference CLI wall with the profiler {prof_wall['cuboid']:.2f}"
+            f" s against {wall['cuboid']:.2f} s without (cuboid, host path, "
+            f"{EVAL_N} panos, process start included) [{card}]")
+
+        # layout_viewer on the card's cuboid JSON and on the CPU's
+        counts = {}
+        for name, path in (("card", sub("out_cuboid", "p00.json")),
+                           ("cpu", sub("cpu.json"))):
+            if name == "cpu":
+                with open(path, "w") as f:
+                    json.dump({"z0": 50.0, "z1": float(want["cuboid_z1"]),
+                               "uv": want["cuboid_uv"].tolist()}, f)
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                check(layout_viewer.main(
+                    ["--img", sub("img", "p00.png"), "--layout", path,
+                     "--out", sub(f"{name}.ply"), "--html",
+                     sub(f"{name}.html"), "--vis_out",
+                     sub(f"{name}.png")]) == 0, "layout_viewer failed")
+            with open(sub(f"{name}.ply")) as f:
+                head = [next(f) for _ in range(12)]
+            counts[name] = [line.strip() for line in head
+                            if line.startswith("element ")]
+        check(counts["card"] == counts["cpu"] and len(counts["card"]) == 2,
+              f"layout_viewer PLY counts {counts}")
+        with open(sub("card.html")) as f:
+            check("<canvas" in f.read(), "layout_viewer HTML has no canvas")
+        preview = read_png(sub("card.png"))
+        check(preview.shape == (480, 2560, 3), f"preview {preview.shape}")
+        log(f"layout_viewer: PLY {counts['card']} (the CPU JSON's too), "
+            "HTML with a canvas, preview 2560x480")
+
+        # dataset_vis: without augmentation the card run's strips equal the
+        # CPU run's; with it the warp runs on the card
+        _write_rooms(sub("rooms"), 2)
+        warped_on = []
+        augment_batch = ds_mod.augment_batch
+
+        def spy(*a, **kw):
+            x = augment_batch(*a, **kw)
+            warped_on.append(x[0].device.type)
+            return x
+
+        for name, extra in (("cpu", ["--device", "cpu"]),
+                            ("card", ["--device", "cuda"]),
+                            ("card_aug", ["--device", "cuda", "--flip",
+                                          "--rotate", "--gamma",
+                                          "--stretch"])):
+            ds_mod.augment_batch = spy
+            try:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    check(dataset_vis.main(
+                        ["--root_dir", sub("rooms"), "--ith", "-1",
+                         "--out_dir", sub(f"vis_{name}"), *extra]) == 0,
+                        f"dataset_vis {name} failed")
+            finally:
+                ds_mod.augment_batch = augment_batch
+        for i in range(2):
+            strips = {n: read_png(sub(f"vis_{n}", f"room{i}.png"))
+                      for n in ("cpu", "card", "card_aug")}
+            check(np.array_equal(strips["cpu"], strips["card"]),
+                  f"dataset_vis room{i}: the card's strip differs from the "
+                  "CPU's")
+            aug = strips["card_aug"]
+            check(aug.shape == (33 + 512, 1024, 3) and aug.dtype == np.uint8
+                  and aug.std() > 0, f"dataset_vis room{i} augmented: "
+                  f"{aug.shape} {aug.dtype}")
+        check(warped_on == ["cuda", "cuda"], f"dataset_vis warps ran on "
+              f"{warped_on}, not the card")
+        log("dataset_vis: strips equal to the CPU run's; with --flip "
+            "--rotate --gamma --stretch the warp ran on the card")
+
+    # trace_serving: the flagship's batch by kernel
+    tool = os.path.join(REPO, "horizonnet_tpu_torch", "tools",
+                        "trace_serving.py")
+    for attempt in range(3):
+        proc = subprocess.run([sys.executable, tool, "64", "dct4", "cuboid",
+                               "12"], cwd=REPO, capture_output=True,
+                              text=True, timeout=600)
+        check(proc.returncode == 0, f"trace_serving failed "
+              f"({proc.returncode}):\n{proc.stderr[-4000:]}")
+        lines = proc.stdout.strip().splitlines()
+        summary = json.loads(lines[-1])
+        k1 = {k: v for k, v in summary["kernels"].items()
+              if "recurrence_" in k}
+        if k1:
+            break
+        log(f"trace_serving try {attempt + 1}: no K1 kernel recorded")
+    check(bool(k1), "trace_serving: 3 profiles without K1 among the kernels")
+    log(f"trace_serving 64 dct4 cuboid 12 [{card}]:")
+    for line in lines[:-1]:
+        log(f"  {line}")
+    log(f"trace_serving: device busy {100 * summary['busy_share']:.1f} % of "
+        f"the batch's {summary['span_ms']:.3f} ms span; K1 "
+        + ", ".join(f"{k[:40]} {v:.3f} ms" for k, v in k1.items()))
+    _launched(state, "bilstm_fwd", "eval", launches)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", nargs="+", default=list(PHASES),
@@ -2298,7 +2659,7 @@ def main(argv=None):
               "host": phase_host, "train": phase_train,
               "train_cli": phase_train_cli, "dynamics": phase_dynamics,
               "densenet": phase_densenet, "quant": phase_quant,
-              "preprocess": phase_preprocess}
+              "preprocess": phase_preprocess, "eval": phase_eval}
     for name in args.phases:
         t0 = time.perf_counter()
         log(f"== phase {name}")

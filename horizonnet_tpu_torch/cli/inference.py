@@ -26,11 +26,15 @@ stem is the same math rearranged for the TPU's matrix unit.
 ``--quant_int8`` serves the int8 resnet encoder (models/quant.py folds the
 loaded weights; the height stage and the head stay float), on the host
 path and with --device_postproc; with --s2d_stem it is refused, as in
-JAX. Still to port: --profile_dir raises NotImplementedError (ROADMAP
-Queue 1 item 11).
+JAX. ``--profile_dir`` runs the serving under torch.profiler (the CUDA
+activity on a CUDA device only) and writes one Chrome trace,
+``*.pt.trace.json``, into the directory, with the JAX CLI's spans:
+serve/ingest, serve/forward+postproc (host path) and serve/general_finish
+(the general tail on serve_stream's worker threads).
 """
 
 import argparse
+import contextlib
 import glob
 import json
 import os
@@ -93,10 +97,6 @@ def main(argv=None):
                              "device is an error")
     args = parser.parse_args(argv)
 
-    if args.profile_dir:
-        raise NotImplementedError("--profile_dir (torch.profiler) is ROADMAP "
-                                  "Queue 1 item 11")
-
     import torch
 
     from ..inference import resolve_device
@@ -124,7 +124,13 @@ def main(argv=None):
                             s2d_stem=args.s2d_stem)
         state_dict = quantize_state_dict(state_dict)
         model.load_state_dict(state_dict)
-    _serve(paths, args, model, state_dict, device)
+    if args.profile_dir:
+        from ..utils.profiling import trace_profile
+        profile_cm = trace_profile(device, args.profile_dir)
+    else:
+        profile_cm = contextlib.nullcontext()
+    with profile_cm:
+        _serve(paths, args, model, state_dict, device)
     return 0
 
 
@@ -132,6 +138,7 @@ def _serve(paths, args, model, state_dict, device):
     from ..inference import InferenceEngine, inference, serve_stream
     from ..postproc import finish_general_batch, unpack_cuboid_outputs
     from ..utils.image import load_pano
+    from ..utils.profiling import trace_annotation
 
     use_device_pp = (args.device_postproc and not args.force_raw
                      and not args.visualize and args.min_v is None
@@ -161,12 +168,15 @@ def _serve(paths, args, model, state_dict, device):
 
     if not use_device_pp:
         for chunk in chunks:
-            x = np.stack([load_pano(p) for p in chunk])
+            with trace_annotation("serve/ingest"):
+                x = np.stack([load_pano(p) for p in chunk])
             x = x.astype(np.float32) / 255.0
-            write_results(chunk, inference(
-                model, state_dict, x, flip=args.flip, rotate=args.rotate,
-                visualize=args.visualize, force_cuboid=args.force_cuboid,
-                force_raw=args.force_raw, min_v=args.min_v, r=args.r))
+            with trace_annotation("serve/forward+postproc"):
+                results = inference(
+                    model, state_dict, x, flip=args.flip, rotate=args.rotate,
+                    visualize=args.visualize, force_cuboid=args.force_cuboid,
+                    force_raw=args.force_raw, min_v=args.min_v, r=args.r)
+            write_results(chunk, results)
         return
 
     engine = InferenceEngine(model, state_dict, batch_size=args.batch_size,
@@ -179,22 +189,25 @@ def _serve(paths, args, model, state_dict, device):
         """Lazy ingest, consumed by serve_stream: reading and packing the
         next chunks overlaps the device work of the current one."""
         for chunk in chunks:
-            x = np.stack([load_pano(p) for p in chunk])
-            # fixed-batch engine: pad the tail chunk with repeats
-            if len(chunk) < args.batch_size:
-                x = np.concatenate(
-                    [x, np.repeat(x[-1:], args.batch_size - len(chunk), 0)])
-            if args.wire == "dct":
-                from ..ops.dct import pack_dct
-                x = pack_dct(x)
-            elif args.wire == "float":
-                x = x.astype(np.float32) / 255.0
+            with trace_annotation("serve/ingest"):
+                x = np.stack([load_pano(p) for p in chunk])
+                # fixed-batch engine: pad the tail chunk with repeats
+                if len(chunk) < args.batch_size:
+                    x = np.concatenate(
+                        [x, np.repeat(x[-1:], args.batch_size - len(chunk),
+                                      0)])
+                if args.wire == "dct":
+                    from ..ops.dct import pack_dct
+                    x = pack_dct(x)
+                elif args.wire == "float":
+                    x = x.astype(np.float32) / 255.0
             yield x
 
     def finish(outs):
         if not args.force_cuboid:
-            return [(c, z0, z1, None)
-                    for c, z0, z1 in finish_general_batch(outs)]
+            with trace_annotation("serve/general_finish"):
+                return [(c, z0, z1, None)
+                        for c, z0, z1 in finish_general_batch(outs)]
         cid, z1 = unpack_cuboid_outputs(outs)
         return [(cid[b], 50.0, float(z1[b]), None) for b in range(len(cid))]
 

@@ -1,11 +1,12 @@
 """Pano IO: a numpy PNG decoder and encoder, Pillow for the rest.
 
-PNG files decode here with zlib and numpy alone, so the CLIs run on hosts
-without Pillow; other formats, and panos that need resizing to the
-1024x512 input contract, go through Pillow (imported on that path only),
-as the JAX CLI does (horizonnet_tpu/cli/inference.py:124-130).
-``write_png`` writes the 8-bit RGB PNGs of synthetic datasets and of the
-preprocess CLIs.
+PNG files (or their bytes, ``decode_png``) decode here with zlib and
+numpy alone, so the CLIs run on hosts without Pillow; other formats, and
+panos that need resizing to the 1024x512 input contract, go through
+Pillow (imported on that path only), as the JAX CLI does
+(horizonnet_tpu/cli/inference.py:124-130). ``write_png`` writes the 8-bit
+RGB PNGs of synthetic datasets and of the preprocess, viewer, dataset and
+prepare CLIs.
 """
 
 import struct
@@ -39,7 +40,12 @@ def _unfilter_sequential(ftype, line, prior, bpp):
 def read_png(path):
     """8-bit, non-interlaced gray/RGB/RGBA PNG -> uint8 [H, W, C]."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_png(f.read(), path)
+
+
+def decode_png(data, path):
+    """read_png on the bytes of a PNG file; ``path`` names the file in the
+    errors."""
     if data[:8] != _PNG_SIG:
         raise ValueError(f"{path}: not a PNG file")
     pos, idat, hdr = 8, [], None

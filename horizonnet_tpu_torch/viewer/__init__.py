@@ -1,2 +1,2 @@
-"""Visualization of the port: the raw-output strip of the inference CLI.
-The layout meshes and PLY export are ROADMAP Queue 1 item 11."""
+"""Visualization and 3D export of the port: raw-output strips, layout
+meshes, PLY, the headless preview and the HTML viewer."""

@@ -456,3 +456,68 @@ def test_preprocess_device_warps_ignore_tf32(cuda):
         torch.backends.cuda.matmul.allow_tf32 = prev
     for off, on in zip(*outs):
         np.testing.assert_array_equal(off, on)
+
+
+def _trace_events(trace_dir):
+    import glob
+    import json
+
+    (path,) = glob.glob(f"{trace_dir}/*.pt.trace.json")
+    with open(path) as f:
+        return json.load(f)["traceEvents"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra,spans", [
+    (["--force_cuboid"], {"serve/ingest", "serve/forward+postproc"}),
+    (["--device_postproc"], {"serve/ingest", "serve/general_finish"}),
+])
+def test_profile_dir_on_card(cuda, tmp_path, extra, spans):
+    """--profile_dir on the card: the JAX CLI's serve/* spans (the general
+    tail's from serve_stream's worker threads) and the K1 kernel's events
+    (recurrence_bf16/f32). The profiler can lose kernel records, so a trace
+    without K1 is taken again, up to 3 times; the spans are required in
+    every one."""
+    import os
+
+    from horizonnet_tpu_torch.cli.inference import main
+
+    fixdir = os.path.join(os.path.dirname(__file__), "fixtures", "golden")
+    k1 = 0
+    for i in range(3):
+        trace = tmp_path / f"trace{i}"
+        assert main(["--pth", os.path.join(fixdir, "resnet18_rnn_synth.ckpt"),
+                     "--img_glob", os.path.join(fixdir, "val_room.png"),
+                     "--output_dir", str(tmp_path / "out"), "--profile_dir",
+                     str(trace), "--device", "cuda", *extra]) == 0
+        events = _trace_events(trace)
+        assert spans <= {e.get("name") for e in events}
+        k1 = sum(e.get("cat") == "kernel"
+                 and "recurrence_" in e.get("name", "") for e in events)
+        if k1:
+            break
+    assert k1 > 0
+
+
+@pytest.mark.cuda
+def test_dataset_vis_on_card_with_augmentation(cuda, tmp_path):
+    """dataset_vis --device cuda with every augmentation: the warp runs on
+    the card and the strip is written at its shape."""
+    import os
+
+    from horizonnet_tpu_torch.cli import dataset_vis
+    from horizonnet_tpu_torch.data.synth import synth_room
+    from horizonnet_tpu_torch.utils.image import read_png, write_png
+
+    root = tmp_path / "rooms"
+    os.makedirs(root / "img")
+    os.makedirs(root / "label_cor")
+    img, cor = synth_room(np.random.default_rng(0), 512, 1024)
+    write_png(str(root / "img" / "room0.png"), img)
+    np.savetxt(root / "label_cor" / "room0.txt", cor, fmt="%.4f")
+    assert dataset_vis.main(["--root_dir", str(root), "--out_dir",
+                             str(tmp_path / "vis"), "--flip", "--rotate",
+                             "--gamma", "--stretch", "--device", "cuda"]) == 0
+    out = read_png(str(tmp_path / "vis" / "room0.png"))
+    assert out.shape == (33 + 512, 1024, 3) and out.dtype == np.uint8
+    assert out.std() > 0

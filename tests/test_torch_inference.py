@@ -237,17 +237,6 @@ def test_cli_quant_int8(golden, tmp_path, extra):
         main(args + ["--s2d_stem"])
 
 
-@pytest.mark.parametrize("extra,match", [
-    (["--device_postproc", "--profile_dir", "trace"], "item 11"),
-])
-def test_cli_refuses_paths_still_to_port(extra, match, tmp_path):
-    from horizonnet_tpu_torch.cli.inference import main
-
-    with pytest.raises(NotImplementedError, match=match):
-        main(["--pth", CKPT, "--img_glob", "x.png", "--output_dir",
-              str(tmp_path), "--device", "cpu", *extra])
-
-
 def test_port_never_imports_jax():
     """Every module of the port, plus a CPU forward, in a fresh process:
     neither jax, flax nor the JAX package gets imported."""
