@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases kernel densenet quant    # model options
     python3 chip_smoke.py --phases preprocess               # VP alignment
     python3 chip_smoke.py --phases eval                     # evals, tools
+    python3 chip_smoke.py --phases kernel parallel          # the mesh
 
 Phases; any failed check makes the script exit non-zero:
   kernel    build K1 (csrc/bilstm_fwd.cu), the training pair K2/K3
@@ -174,18 +175,43 @@ Phases; any failed check makes the script exit non-zero:
             warp runs on the card; horizonnet_tpu_torch/tools/
             trace_serving.py 64 dct4 cuboid 12: the flagship's batch by
             kernel, K1 among them, and the device-busy share.
+  parallel  the multi-process layout (horizonnet_tpu_torch/parallel), for
+            its semantics: the card machine has one card, so two ranks
+            share it and no time here is a multi-GPU speed. Each part in
+            fresh processes; a rank's failure fails the phase. (1) python
+            -m torch.distributed.run --standalone --nproc_per_node 1 (the
+            torchrun entry, one rank on NCCL) of the train CLI, resnet50
+            bf16 at 512x1024, batch 8 of 16 synthetic rooms, one epoch of
+            2 steps, K2/K3: the rank reports its K2/K3 launches and losses
+            at exit, its first two losses within PAR_CLI_BARS of the same
+            CLI run without torchrun, epoch_1.ckpt loads. (2) the
+            resnet50_rnn train step at 512x1024, global batch 8, on two ranks
+            sharing the card over gloo at layouts (2, 1) and (1, 2),
+            against the one-process step on the card (same weights, batch
+            and dropout seed), in float32 (TF32 off) and in bf16: losses,
+            the gathered gradients tensor by tensor and the running
+            statistics within PAR_BARS, the parameters after one Adam step
+            within one step of one process's; at n_model 2 a rank holds
+            half the encoder's parameter bytes; K2/K3 launched on every
+            rank; ms a step per layout. (3) data-parallel serving on two
+            ranks: the golden f32 (TF32 off) in cuboid and general mode
+            within 2 px of golden_outputs.npz on every rank; the flagship
+            (resnet50_rnn bf16, B=64, dct4) finite [64, 8, 2] on every
+            rank, the same on both, at least PAR_FLAGSHIP_ROWS rows within
+            2 px of the one-process engine's (bf16 ties); K1 launched on
+            every rank.
 
 Before the last line it prints the card's name and power limit, and one
 JSON line {"kernels": [...]} with each kernel's launches on the paths
 that run it, summed (K1: the flagship, densenet121 and int8 serving
 runs, the preprocess chain and the eval phase's inference CLI runs, each
-in a fresh process that reports its count; K2, K3: the resnet50 and
-densenet121 train
-runs; K4: the fused run; each counted from 0 just before its run, and
-logged by path), its error against the twin, its time beside the twin's,
-its bound and the library call's time. K4's times and bound are summed
-over the 12 calls of one resnet50 forward (2, 3, 5 and 2 at the four stage
-shapes).
+in a fresh process that reports its count, and the parallel phase's
+serving ranks; K2, K3: the resnet50 and densenet121 train runs and the
+parallel phase's torchrun run and ranks; K4: the fused run; each counted
+from 0 just before its run, and logged by path), its error against the
+twin, its time beside the twin's, its bound and the library call's time.
+K4's times and bound are summed over the 12 calls of one resnet50
+forward (2, 3, 5 and 2 at the four stage shapes).
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no
 result.
@@ -204,7 +230,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, "tests", "fixtures", "golden")
 PHASES = ("kernel", "golden", "flagship", "fused", "general", "cli", "host",
           "train", "train_cli", "dynamics", "densenet", "quant",
-          "preprocess", "eval")
+          "preprocess", "eval", "parallel")
 # H100 SXM peaks: f32 outside the tensor cores, bf16 dense on the tensor
 # cores, and HBM3
 PEAK_F32_FLOPS = 67e12
@@ -819,11 +845,11 @@ def _flagship_wire(state, B=FLAGSHIP_B, n_distinct=3):
 
 
 def _flagship_engine(postproc, fused_blocks="", backbone="resnet50",
-                     quant_int8=False, batch_size=FLAGSHIP_B):
+                     quant_int8=False, batch_size=FLAGSHIP_B, mesh=None):
     """resnet50_rnn (or ``backbone``), bf16, the flagship batch (or
     ``batch_size``), dct4 wire, random weights (seed 0); ``quant_int8``:
     the int8 encoder on the same float weights folded by
-    models/quant.py::quantize_state_dict."""
+    models/quant.py::quantize_state_dict; ``mesh``: data-parallel."""
     import torch
     from horizonnet_tpu_torch.inference import InferenceEngine
     from horizonnet_tpu_torch.models import build_model
@@ -838,7 +864,7 @@ def _flagship_engine(postproc, fused_blocks="", backbone="resnet50",
         model = build_model(backbone, True, quant_int8=True, **kw)
     return InferenceEngine(model, sd, batch_size=batch_size,
                            postproc=postproc, input_format="dct4",
-                           device="cuda")
+                           device="cuda", mesh=mesh)
 
 
 def _serve(eng, feed, finish, workers=1):
@@ -2601,6 +2627,414 @@ def phase_eval(state):
     _launched(state, "bilstm_fwd", "eval", launches)
 
 
+# The parallel phase's two-rank layouts and its bars against one process
+# on the card, per compute dtype (float32 with TF32 off; bf16 on float32
+# parameters): losses relative; the L2 norm of the gathered gradient's
+# difference over one process's, per tensor for the bi-LSTM and head and
+# for the conv stacks (tests/test_torch_parallel.py's measure), and over
+# the whole model (the height stage's conv biases, zero in exact
+# arithmetic under batch norm, left out); running statistics within a
+# share of each tensor's largest entry. bf16 holds the whole gradient
+# only, against its own rounding: the one-process bf16 step's distance
+# from the one-process float32 step, times PAR_BF16_X (two steps that
+# each carry bf16's rounding lie about sqrt(2) of it apart; a tensor whose
+# sums cancel is rounding noise in bf16).
+# The parameters after one Adam step at PAR_LR must lie within one step of
+# one process's (every entry moves by about lr); the share that moved the
+# other way (their gradient took the other sign) is printed: in bf16 it
+# counts every entry whose gradient is below the rounding noise.
+PAR_LAYOUTS = ((2, 1), (1, 2))
+PAR_LR = 1e-4
+PAR_BARS = {
+    "float32": dict(loss=1e-5, grad_head=1e-4, grad_conv=5e-2, grad_all=5e-2,
+                    stats=1e-4),
+    "bfloat16": dict(loss=1e-2, grad_head=None, grad_conv=None,
+                     grad_all=None, stats=5e-2)}
+PAR_BF16_X = 2.0
+# the torchrun run's first two losses against the same CLI run without
+# torchrun: the first step is the same forward (bf16), the second follows
+# an update from cuDNN's backward, which is not bit-reproducible
+PAR_CLI_BARS = (1e-3, 1e-2)
+# rows of the data-parallel flagship that must land within 2 px of the
+# one-process engine's: bf16 heatmaps have exact ties between columns,
+# broken by sums in another order at another local batch
+PAR_FLAGSHIP_ROWS = 56
+
+
+def _train_cli_counted(cli_args, torchrun, cwd):
+    """python -m horizonnet_tpu_torch.cli.train ``cli_args`` (runpy runs
+    the module as __main__, as -m does) from ``cwd``, under torchrun on
+    one process (--standalone, NCCL) or alone, in fresh processes that
+    report at exit K2's and K3's launches and every step's loss:
+    (seconds, K2, K3, losses, stdout). torchrun's parser reads an
+    argument of the script that abbreviates one of its own options as
+    that option (torch 2.11 refused ``--logs``, a prefix of its
+    ``--logs-specs``), so pass none: ``--logs`` keeps its default under
+    ``cwd``."""
+    code = "\n".join([
+        "import json, runpy, sys",
+        "from horizonnet_tpu_torch.ops import cuda_lstm_train as clt",
+        "from horizonnet_tpu_torch.train import engine",
+        "losses, step = [], engine.TrainEngine.step",
+        "def counted(self, *args):",
+        "    m = step(self, *args)",
+        "    losses.append(m['total'].item())",
+        "    return m",
+        "engine.TrainEngine.step = counted",
+        "try:",
+        "    runpy.run_module('horizonnet_tpu_torch.cli.train', "
+        "run_name='__main__', alter_sys=True)",
+        "finally:",
+        "    print('TRAIN_COUNTS ' + json.dumps([clt.fwd_launches, "
+        "clt.bwd_launches, losses]), file=sys.stderr)"])
+    cmd = [sys.executable, "-c", code, *cli_args]
+    if torchrun:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "1", "--no_python", *cmd]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=cwd, env=env, capture_output=True,
+                          text=True, timeout=600)
+    dt = time.perf_counter() - t0
+    check(proc.returncode == 0, f"train CLI (torchrun {torchrun}) failed "
+          f"({proc.returncode}):\n{proc.stderr[-4000:]}")
+    found = [json.loads(line.split(" ", 1)[1])
+             for line in proc.stderr.splitlines()
+             if line.startswith("TRAIN_COUNTS ")]
+    check(len(found) == 1, "the train CLI did not report its counts")
+    k2, k3, losses = found[0]
+    return dt, k2, k3, losses, proc.stdout
+
+
+def _par_train_setup(dtype, mesh=None):
+    """The two-rank check's train step: resnet50_rnn at 512x1024, ``dtype``
+    compute on float32 parameters, K2/K3, Adam at PAR_LR, random weights
+    from seed 0, a global batch of TRAIN_B from numpy seed 0 and the
+    dropout generator seeded 0 (on every rank): (engine, global batch,
+    generator)."""
+    import numpy as np
+    import torch
+    from horizonnet_tpu_torch.models import build_model
+    from horizonnet_tpu_torch.train.engine import TrainEngine
+    from horizonnet_tpu_torch.train.schedule import warmup_poly_schedule
+    from horizonnet_tpu_torch.train.step import (create_train_state,
+                                                 make_optimizer)
+
+    B, H, W = TRAIN_B, 512, 1024
+    model = build_model("resnet50", True, device="cuda", dtype=dtype,
+                        lstm_impl="kernel_train", param_dtype=torch.float32,
+                        seed=0)
+    st = create_train_state(model, make_optimizer(
+        "Adam", warmup_poly_schedule(PAR_LR, 1000)))
+    eng = TrainEngine(model, st, B, H, W, device="cuda", mesh=mesh)
+    rng = np.random.default_rng(0)
+    batch = (rng.uniform(0, 1, (B, H, W, 3)).astype(np.float32),
+             rng.normal(0, 0.5, (B, 2, W)).astype(np.float32),
+             rng.uniform(0, 1, (B, 1, W)).astype(np.float32))
+    return eng, batch, torch.Generator(device="cuda").manual_seed(0)
+
+
+def _step_ms(eng, batch, gen, n=3):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        eng.step(*batch, gen)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def _par_step(eng, batch, gen):
+    """One step: (losses, {name: gathered gradient}, {name: gathered
+    state}), float32 on the host."""
+    m = eng.step(*batch, gen)
+    grads = eng.full({k: p.grad for k, p in eng.model.named_parameters()})
+    return ([m[k].item() for k in ("total", "bon", "cor")],
+            {k: v.float().cpu() for k, v in grads.items()},
+            {k: v.float().clone() for k, v in
+             eng.host_state()["state_dict"].items()
+             if not k.endswith("num_batches_tracked")})
+
+
+def _par_compare(got, ref):
+    """The bars' measures of a step (``_par_step``) against another's,
+    ``ref``."""
+    (losses, grads, sd), (r_losses, r_grads, r_sd) = got, ref
+    out = dict(losses=losses, loss=max(abs(a - b) / abs(b)
+                                       for a, b in zip(losses, r_losses)),
+               grad_head=(0.0, ""), grad_conv=(0.0, ""), stats=0.0,
+               max_d=0.0)
+    n_all = n_flip = 0
+    sq_diff = sq_ref = 0.0
+    for k, r in r_sd.items():
+        d = (sd[k] - r).abs()
+        if k not in r_grads:   # the running statistics
+            out["stats"] = max(out["stats"], float(d.max() / r.abs().max()))
+            continue
+        out["max_d"] = max(out["max_d"], float(d.max()))
+        n_all, n_flip = n_all + d.numel(), n_flip + int((d > PAR_LR).sum())
+        if k.startswith("reduce_height_module.") and \
+                k.endswith(".layers.0.1.bias"):
+            continue
+        diff, norm = (grads[k] - r_grads[k]).norm(), r_grads[k].norm()
+        sq_diff, sq_ref = sq_diff + float(diff) ** 2, sq_ref + float(norm) ** 2
+        err = float(diff / norm)
+        key = ("grad_head" if k.startswith(("bi_rnn.", "linear."))
+               else "grad_conv")
+        out[key] = max(out[key], (err, k))
+    out["flip"] = n_flip / n_all
+    out["grad_all"] = (sq_diff / sq_ref) ** 0.5
+    return out
+
+
+def _par_train_rank(ref_path, layouts):
+    """One rank of the parallel phase's train check: for each compute dtype
+    and layout, the first step against one process's (``ref_path``),
+    K2/K3's launches, the encoder's parameter bytes here and whole, and
+    ms a step."""
+    import torch
+    from horizonnet_tpu_torch.ops import cuda_lstm_train as clt
+    from horizonnet_tpu_torch.parallel import make_mesh, shard_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    refs = torch.load(ref_path, weights_only=False)
+    out = []
+    for name, ref in refs.items():
+        for n_data, n_model in layouts:
+            mesh = make_mesh(n_data, n_model)
+            eng, batch, gen = _par_train_setup(getattr(torch, name), mesh)
+            batch = shard_batch(mesh, batch)
+            clt.fwd_launches = clt.bwd_launches = 0
+            res = _par_compare(_par_step(eng, batch, gen), ref)
+            enc = [k for k, _ in eng.model.named_parameters()
+                   if k.startswith("feature_extractor.encoder.")]
+            local = eng.model.state_dict()
+            res.update(dtype=name, layout=(n_data, n_model),
+                       k2=clt.fwd_launches, k3=clt.bwd_launches,
+                       enc_local=sum(local[k].numel() * 4 for k in enc),
+                       enc_whole=sum(ref[2][k].numel() * 4 for k in enc),
+                       ms=_step_ms(eng, batch, gen, n=1))
+            out.append(res)
+            del eng
+            torch.cuda.empty_cache()
+    return out
+
+
+def _par_serve_rank(wire_path):
+    """One rank of the parallel phase's serving check over a (2, 1) mesh:
+    the golden f32 (TF32 off) in cuboid and general mode, val_room in
+    both rows of a batch of 2; the flagship (resnet50_rnn bf16, dct4,
+    cuboid) on ``wire_path``'s batch; K1's launches."""
+    import numpy as np
+    import torch
+    from horizonnet_tpu_torch.inference import InferenceEngine
+    from horizonnet_tpu_torch.ops import cuda_lstm
+    from horizonnet_tpu_torch.parallel import make_mesh
+    from horizonnet_tpu_torch.postproc import (finish_general_batch,
+                                               unpack_cuboid_outputs)
+    from horizonnet_tpu_torch.train.checkpoint import load_trained_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(2, 1)
+    cuda_lstm.launches = 0
+    img, _ = _golden_inputs()
+    x = np.repeat(img[None].astype(np.float32) / 255.0, 2, 0)
+    model, sd = load_trained_model(
+        os.path.join(GOLDEN, "resnet18_rnn_synth.ckpt"), device="cuda")
+    golden = []
+    for postproc in ("cuboid", "general"):
+        eng = InferenceEngine(model, sd, 2, postproc=postproc,
+                              device="cuda", mesh=mesh)
+        golden.append(eng(x))
+    cuboid = unpack_cuboid_outputs(golden[0])
+    general = finish_general_batch(golden[1])
+    eng = _flagship_engine("cuboid", mesh=mesh)
+    wire = np.load(wire_path)
+    cor_id, z1 = unpack_cuboid_outputs(eng(wire))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        eng(wire)
+    torch.cuda.synchronize()
+    return dict(cuboid=cuboid, general=general, flagship=(cor_id, z1),
+                ms=(time.perf_counter() - t0) / 3 * 1e3,
+                k1=cuda_lstm.launches)
+
+
+def phase_parallel(state):
+    import numpy as np
+    import torch
+    from horizonnet_tpu_torch.parallel.dryrun import run_ranks
+    from horizonnet_tpu_torch.postproc import unpack_cuboid_outputs
+    from horizonnet_tpu_torch.train.checkpoint import load_trained_model
+
+    card = state["card"]
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as root:
+        # 1. the train CLI under torchrun, one rank on NCCL, against the
+        # same run without torchrun
+        _write_rooms(os.path.join(root, "rooms"), 2 * TRAIN_B)
+        runs = {}
+        for name, torchrun in (("torchrun", True), ("alone", False)):
+            runs[name] = _train_cli_counted(
+                ["--id", name, "--ckpt", os.path.join(root, "ckpt"),
+                 "--train_root_dir", os.path.join(root, "rooms"),
+                 "--valid_root_dir", "",
+                 "--backbone", "resnet50", "--batch_size_train",
+                 str(TRAIN_B), "--epochs", "1", "--save_every", "1",
+                 "--lstm_impl", "pallas_train", "--bf16", "--device",
+                 "cuda"], torchrun, root)
+        dt, k2, k3, losses, stdout = runs["torchrun"]
+        check("backend nccl" in stdout, f"torchrun's rank did not take "
+              f"NCCL:\n{stdout[-2000:]}")
+        _launched(state, "bilstm_train_fwd", "parallel_torchrun", k2)
+        _launched(state, "bilstm_bwd", "parallel_torchrun", k3)
+        alone = runs["alone"][3]
+        check(len(losses) == len(alone) == 2, f"losses {losses}, {alone}")
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, alone)]
+        check(all(r <= bar for r, bar in zip(rel, PAR_CLI_BARS)),
+              f"torchrun's losses {losses} against {alone}")
+        _, sd = load_trained_model(os.path.join(root, "ckpt", "torchrun",
+                                                "epoch_1.ckpt"),
+                                   device="cuda")
+        check(all(bool(torch.isfinite(v.float()).all()) for v in sd.values()),
+              "torchrun's epoch_1.ckpt is not finite")
+        log(f"parallel torchrun: train CLI, resnet50 bf16 B={TRAIN_B} "
+            f"512x1024, one rank on NCCL ([dist] line: "
+            f"{[ln for ln in stdout.splitlines() if '[dist]' in ln]}), 2 "
+            f"steps in {dt:.1f} s (process and build included; "
+            f"{runs['alone'][0]:.1f} s alone): losses {losses} against "
+            f"{alone} without torchrun (relative {rel[0]:.2e}, "
+            f"{rel[1]:.2e}; bars {PAR_CLI_BARS}), K2 {k2}, K3 {k3} "
+            f"launches; epoch_1.ckpt loads, finite [{card}]")
+
+        # 2. two ranks sharing the card (gloo) at each layout against one
+        # process on the card, in float32 and in bf16
+        refs, one_ms, again = {}, {}, {}
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            for i in range(2):   # the second: one process's own spread
+                eng, batch, gen = _par_train_setup(dtype)
+                step = _par_step(eng, batch, gen)
+                if i == 0:
+                    refs[name] = step
+                    one_ms[name] = _step_ms(eng, batch, gen)
+                else:
+                    again[name] = _par_compare(step, refs[name])
+                del eng
+                torch.cuda.empty_cache()
+        for name, rep in again.items():
+            log(f"parallel train, one process {name} against itself (a "
+                f"second engine, the same seeds): losses {rep['loss']:.2e}, "
+                f"gradients over the whole model {rep['grad_all']:.2e}, "
+                f"worst conv-stack tensor {rep['grad_conv'][0]:.2e}, "
+                f"{100 * rep['flip']:.3f} % of parameters moved the other "
+                f"way [{card}]")
+        bf16_noise = _par_compare(refs["bfloat16"], refs["float32"])
+        bars = dict(PAR_BARS)
+        bars["bfloat16"] = dict(bars["bfloat16"],
+                                grad_all=PAR_BF16_X * bf16_noise["grad_all"])
+        log(f"parallel train, one process: bf16's gradient "
+            f"{bf16_noise['grad_all']:.3e} from float32's over the whole "
+            f"model, losses {bf16_noise['losses']} against "
+            f"{refs['float32'][0]} [{card}]")
+        ref_path = os.path.join(root, "ref.pt")
+        torch.save(refs, ref_path)
+        t0 = time.perf_counter()
+        ranks = run_ranks(_par_train_rank, 2, ref_path, PAR_LAYOUTS,
+                          device="cuda", timeout=600)
+        t_ranks = time.perf_counter() - t0
+        for r, res in enumerate(ranks):
+            for lay in res:
+                check(lay["k2"] > 0 and lay["k3"] > 0, f"rank {r} at "
+                      f"{lay['layout']}: K2 {lay['k2']}, K3 {lay['k3']}")
+        _launched(state, "bilstm_train_fwd", "parallel_ranks",
+                  sum(lay["k2"] for res in ranks for lay in res))
+        _launched(state, "bilstm_bwd", "parallel_ranks",
+                  sum(lay["k3"] for res in ranks for lay in res))
+        for i, lay in enumerate(ranks[0]):
+            bar = bars[lay["dtype"]]
+            share = lay["enc_local"] / lay["enc_whole"]
+            log(f"parallel train {lay['dtype']} layout (data="
+                f"{lay['layout'][0]}, model={lay['layout'][1]}), two ranks "
+                f"sharing one card over gloo (not a multi-GPU speed), "
+                f"against one process: losses {lay['losses']} (relative "
+                f"{lay['loss']:.2e}, bar {bar['loss']}); gradients: whole "
+                f"model {lay['grad_all']:.2e} (bar {bar['grad_all']}), "
+                f"worst tensor of the bi-LSTM and head "
+                f"{lay['grad_head'][0]:.2e} ({lay['grad_head'][1]}; bar "
+                f"{bar['grad_head']}), of the conv stacks "
+                f"{lay['grad_conv'][0]:.2e} ({lay['grad_conv'][1]}; bar "
+                f"{bar['grad_conv']}); running statistics "
+                f"{lay['stats']:.2e} (bar {bar['stats']}); parameters "
+                f"after one Adam step: max |d| {lay['max_d']:.4e} (one step "
+                f"{PAR_LR}), {100 * lay['flip']:.3f} % moved the other way; "
+                f"encoder parameters here {lay['enc_local'] / 2**20:.1f} of "
+                f"{lay['enc_whole'] / 2**20:.1f} MiB ({share:.3f}); K2/K3 "
+                f"launches on ranks 0, 1: "
+                f"{[(res[i]['k2'], res[i]['k3']) for res in ranks]}; "
+                f"{lay['ms']:.1f} ms a step against one process's "
+                f"{one_ms[lay['dtype']]:.1f} [{card}]")
+        log(f"parallel train: both dtypes and layouts in {t_ranks:.1f} s "
+            "(spawn, builds and steps)")
+
+        # 3. data-parallel serving, two ranks
+        wire = _flagship_wire(state)[0]
+        wire_path = os.path.join(root, "wire.npy")
+        np.save(wire_path, wire)
+        one = unpack_cuboid_outputs(_flagship_engine("cuboid")(wire))
+        img, want = _golden_inputs()
+        t0 = time.perf_counter()
+        serve = run_ranks(_par_serve_rank, 2, wire_path, device="cuda",
+                          timeout=600)
+        t_serve = time.perf_counter() - t0
+    for r, res in enumerate(serve):
+        cid, z1 = res["cuboid"]
+        dpx = float(np.abs(cid - want["cuboid_uv"]).max() * 512)
+        gpx = max(float(np.abs(c - want["general_uv"]).max() * 512)
+                  if c.shape == want["general_uv"].shape else np.inf
+                  for c, _, _ in res["general"])
+        f_cid, f_z1 = res["flagship"]
+        check(f_cid.shape == (FLAGSHIP_B, 8, 2) and
+              bool(np.isfinite(f_cid).all() and np.isfinite(f_z1).all()),
+              f"rank {r}: flagship {f_cid.shape} not finite")
+        rows = np.abs(f_cid - one[0]).max(axis=(1, 2)) * 512
+        same = int((rows < 2.0).sum())
+        log(f"parallel serving rank {r} (data=2, two ranks on one card): "
+            f"golden f32 cuboid {dpx:.4f} px, general {gpx:.4f} px from "
+            f"golden_outputs.npz (both rows); flagship {f_cid.shape}, "
+            f"{same} of {FLAGSHIP_B} rows within 2 px of the one-process "
+            f"engine's (worst {rows.max():.1f} px; bar "
+            f"{PAR_FLAGSHIP_ROWS}), {res['ms']:.1f} ms a batch of "
+            f"{FLAGSHIP_B}; K1 launches {res['k1']} [{card}]")
+        check(dpx < 2.0 and gpx < 2.0, f"rank {r}: golden off by {dpx}, "
+              f"{gpx} px")
+        check(same >= PAR_FLAGSHIP_ROWS, f"rank {r}: {same} flagship rows")
+        check(res["k1"] > 0, f"rank {r}: K1 was not launched")
+        check(np.array_equal(f_cid, serve[0]["flagship"][0]),
+              "the ranks returned different flagship results")
+    _launched(state, "bilstm_fwd", "parallel_serving",
+              sum(res["k1"] for res in serve))
+    log(f"parallel serving: {t_serve:.1f} s (spawn, builds, serving)")
+    for lay in ranks[0]:   # checked after the serving part
+        bar, what = bars[lay["dtype"]], (lay["dtype"], lay["layout"])
+        for key in ("loss", "grad_all", "stats"):
+            check(lay[key] <= bar[key], f"{what}: {key}")
+        for key in ("grad_head", "grad_conv"):
+            check(bar[key] is None or lay[key][0] <= bar[key],
+                  f"{what}: {key}")
+        # two opposite steps, and float32's rounding of parameters
+        # up to 8 in size
+        check(lay["max_d"] <= 2.01 * PAR_LR, f"{what}: a parameter "
+              "moved by more than one step from one process's")
+        if lay["layout"][1] == 2:
+            share = lay["enc_local"] / lay["enc_whole"]
+            check(abs(share - 0.5) < 0.01, f"encoder share {share}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", nargs="+", default=list(PHASES),
@@ -2659,7 +3093,8 @@ def main(argv=None):
               "host": phase_host, "train": phase_train,
               "train_cli": phase_train_cli, "dynamics": phase_dynamics,
               "densenet": phase_densenet, "quant": phase_quant,
-              "preprocess": phase_preprocess, "eval": phase_eval}
+              "preprocess": phase_preprocess, "eval": phase_eval,
+              "parallel": phase_parallel}
     for name in args.phases:
         t0 = time.perf_counter()
         log(f"== phase {name}")

@@ -24,8 +24,26 @@ JAX model's eval mode takes the serving kernel), ``scan`` autograd
 through the plain loop. ``--backbone`` takes the resnet and densenet
 encoders; ``--seam_pool`` wrap-pads the stem's max pool. ``--s2d_stem``
 is accepted and runs the standard stem (the same math rearranged for the
-TPU's matrix unit). Still to port: --n_model > 1 raises
-NotImplementedError (ROADMAP Queue 1 item 9).
+TPU's matrix unit).
+
+Several ranks: under ``torchrun`` (which sets WORLD_SIZE) every rank
+joins the process group (parallel/mesh.py::init_distributed: NCCL when
+each rank has a card of its own, gloo when ranks share one or run on the
+CPU) and trains on a (world / n_model, n_model) mesh: DDP with global
+batch statistics over 'data', the encoder's and height stage's
+conv + batch-norm units split by output channel over 'model'
+(``--n_model``, parallel/sharding.py):
+
+    torchrun --nproc_per_node 2 -m horizonnet_tpu_torch.cli.train \
+        --id run1 --n_model 2 [--device cpu] ...
+
+Every rank draws the same epoch order and dropout masks and takes its
+rows of each global batch, the validation set is split over the ranks,
+and rank 0 prints and writes the checkpoints (whole: the shards are
+gathered first). ``--n_model`` must divide the world and n_data the
+global batch, else the CLI raises: JAX quietly trains on fewer devices
+(the largest count that divides the batch), but a torchrun rank cannot
+sit idle.
 """
 
 import argparse
@@ -35,6 +53,7 @@ import sys
 import numpy as np
 
 LSTM_IMPLS = {"scan": "plain", "pallas_train": "kernel_train"}
+VALID_METRICS = ("bon", "cor", "total", "2DIoU", "3DIoU", "rmse", "delta_1")
 
 
 def build_argparser():
@@ -85,7 +104,9 @@ def build_argparser():
                              "(ops/dct.py), decoded on the device before "
                              "the augmentation warp")
     parser.add_argument("--n_model", default=1, type=int,
-                        help="tensor-parallel axis size (only 1 is ported)")
+                        help="tensor-parallel axis size under torchrun "
+                             "(conv channels split per "
+                             "parallel/sharding.py)")
     parser.add_argument("--lstm_impl", default="scan",
                         choices=["scan", "pallas_train"],
                         help="LSTM recurrence in the train step: autograd "
@@ -115,7 +136,7 @@ def epoch_seed(seed, epoch):
         1, np.uint64)[0] >> 1)
 
 
-def validate(engine, dataset, batch_size):
+def validate(engine, dataset, batch_size, indices=None):
     """One validation pass, as the JAX CLI's (horizonnet_tpu/cli/train.py:
     272-349): the forward batched at ``batch_size`` through the fixed-batch
     InferenceEngine ``engine`` (the tail chunk padded with repeats), then
@@ -126,8 +147,9 @@ def validate(engine, dataset, batch_size):
     (return_cor=True). A sample whose forward or postprocess fails gets
     placeholder metrics, and each chunk that had one prints a [WARN] line
     (so, as in the JAX CLI, a width other than postprocess's 1024 gives
-    placeholders). Returns the means over the dataset of {"bon", "cor",
-    "total", "2DIoU", "3DIoU", "rmse", "delta_1"}."""
+    placeholders). Returns the means over the dataset (or its samples
+    ``indices``) of {"bon", "cor", "total", "2DIoU", "3DIoU", "rmse",
+    "delta_1"}, none for no samples."""
     from ..evals import new_general_losses, test_general
     from ..inference import postprocess
 
@@ -137,9 +159,9 @@ def validate(engine, dataset, batch_size):
     valid_loss = {}
     bsv = max(1, batch_size)
     eps = 1e-7
-    for j0 in range(0, len(dataset), bsv):
-        samples = [dataset[j]
-                   for j in range(j0, min(j0 + bsv, len(dataset)))]
+    indices = list(range(len(dataset)) if indices is None else indices)
+    for j0 in range(0, len(indices), bsv):
+        samples = [dataset[j] for j in indices[j0:j0 + bsv]]
         nb = len(samples)
         # fixed-batch engine: pad the tail chunk with repeats
         xb = np.stack([s[0] for s in samples] + [samples[-1][0]] * (bsv - nb))
@@ -185,19 +207,46 @@ def validate(engine, dataset, batch_size):
             print(f"[WARN] validation: {n_placeheld}/{nb} samples in chunk "
                   f"{j0 // bsv} fell back to placeholder metrics after "
                   "forward failure", file=sys.stderr)
-    return {k: v / len(dataset) for k, v in valid_loss.items()}
+    return {k: v / len(indices) for k, v in valid_loss.items()}
 
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    if args.n_model > 1:
-        raise NotImplementedError("--n_model > 1 (tensor parallelism) is "
-                                  "ROADMAP Queue 1 item 9")
+    import torch.distributed as dist
 
+    from ..inference import resolve_device
+    from ..parallel import init_distributed, make_mesh
+
+    n_model = max(1, args.n_model)
+    if "WORLD_SIZE" not in os.environ:
+        if n_model != 1:
+            raise ValueError(f"--n_model {n_model} needs that many ranks "
+                             "or a multiple: launch with torchrun "
+                             "--nproc_per_node")
+        return _train(args, resolve_device(args.device), None, 0, 1)
+    owns_group = not dist.is_initialized()
+    device = init_distributed(args.device)
+    try:
+        world = dist.get_world_size()
+        if world % n_model:
+            raise ValueError(f"--n_model {n_model} does not divide the "
+                             f"{world} ranks")
+        mesh = make_mesh(world // n_model, n_model)
+        return _train(args, device, mesh, dist.get_rank(), world)
+    finally:
+        if owns_group:
+            dist.destroy_process_group()
+
+
+def _train(args, device, mesh, rank, world):
+    """The training loop of ``main`` on this rank: ``mesh`` None in one
+    process, else this rank's place in the (world / n_model, n_model)
+    mesh."""
     import torch
+    import torch.distributed as dist
 
     from ..data.dataset import PanoCorBonDataset, make_training_batch
-    from ..inference import InferenceEngine, resolve_device
+    from ..inference import InferenceEngine
     from ..models import build_model
     from ..train.checkpoint import (load_checkpoint, load_trained_model,
                                     save_checkpoint, save_model)
@@ -206,7 +255,7 @@ def main(argv=None):
     from ..train.step import (create_train_state, encoder_freeze_mask,
                               make_optimizer)
 
-    device = resolve_device(args.device)
+    say = print if rank == 0 else (lambda *a, **k: None)  # noqa: E731
     os.makedirs(os.path.join(args.ckpt, args.id), exist_ok=True)
 
     aug_flags = dict(flip=not args.no_flip, rotate=not args.no_rotate,
@@ -218,7 +267,7 @@ def main(argv=None):
                    if args.train_aug_root_dir else None)
     dataset_valid = (PanoCorBonDataset(args.valid_root_dir, return_cor=True)
                      if args.valid_root_dir else None)
-    print(f"training dataset contains {len(dataset_train)} images")
+    say(f"training dataset contains {len(dataset_train)} images")
     H, W = dataset_train.load_raw(0)[0].shape[:2]
 
     build_kw = dict(device=device,
@@ -228,7 +277,7 @@ def main(argv=None):
                     bn_momentum=args.bn_momentum or 0.1,
                     seam_pool=args.seam_pool)
     if args.pth:
-        print("Finetune model is given. Ignore --backbone and --no_rnn")
+        say("Finetune model is given. Ignore --backbone and --no_rnn")
         model, _ = load_trained_model(args.pth, **build_kw)
     else:
         model = build_model(args.backbone, not args.no_rnn, seed=args.seed,
@@ -243,6 +292,14 @@ def main(argv=None):
         bs_aug = args.batch_size_train - bs_main
     else:
         bs_main, bs_aug = args.batch_size_train, 0
+    # each data rank takes rows [lo, hi) of every global batch
+    n_data = 1 if mesh is None else mesh.n_data
+    data_rank = 0 if mesh is None else mesh.data_rank
+    if (bs_main + bs_aug) % n_data:
+        raise ValueError(f"batch of {bs_main + bs_aug} does not split over "
+                         f"{n_data} data ranks")
+    lo = data_rank * (bs_main + bs_aug) // n_data
+    hi = lo + (bs_main + bs_aug) // n_data
     steps_per_epoch = len(dataset_train) // bs_main
     max_iters = args.epochs * steps_per_epoch
     warmup_iters = args.warmup_epochs * steps_per_epoch
@@ -269,20 +326,25 @@ def main(argv=None):
                              "flags disagree")
         start_epoch = int(header["epoch"]) + 1
         resume_best = float(header["best_valid_score"])
-        print(f"Resumed from {rp}: epoch {header['epoch']}, step "
-              f"{state.step}, best {resume_best:.4f}")
+        say(f"Resumed from {rp}: epoch {header['epoch']}, step "
+            f"{state.step}, best {resume_best:.4f}")
 
+    # under a mesh the engine shards the whole model it is given
     engine = TrainEngine(model, state, batch_size=bs_main + bs_aug, H=H, W=W,
-                         device=device)
+                         device=device, mesh=mesh)
 
-    try:
-        from tensorboardX import SummaryWriter
-        tb = SummaryWriter(log_dir=os.path.join(args.logs, args.id))
-    except ImportError:
-        tb = None
+    tb = None
+    if rank == 0:
+        try:
+            from tensorboardX import SummaryWriter
+            tb = SummaryWriter(log_dir=os.path.join(args.logs, args.id))
+        except ImportError:
+            pass
     try:  # per-epoch progress (ref train.py:246,258 uses trange)
         from tqdm import trange
     except ImportError:
+        trange = None
+    if trange is None or rank != 0:
         trange = lambda n, **kw: range(n)  # noqa: E731
 
     from concurrent.futures import ThreadPoolExecutor
@@ -290,30 +352,55 @@ def main(argv=None):
                 if args.num_workers > 0 else None)
 
     def build_batch(epoch_order, aug_epoch_order, it, bat_rng):
-        idx = epoch_order[it * bs_main:(it + 1) * bs_main]
-        x, y_bon, y_cor = make_training_batch(dataset_train, idx, bat_rng,
-                                              device=device)
+        rows = [(dataset_train, i)
+                for i in epoch_order[it * bs_main:(it + 1) * bs_main]]
         if dataset_aug is not None:
             a_idx = aug_epoch_order[(it * bs_aug) % len(dataset_aug):][:bs_aug]
-            xa, ba, ca = make_training_batch(dataset_aug, a_idx, bat_rng,
-                                             device=device)
-            x = torch.cat([x, xa], 0)
-            y_bon = np.concatenate([y_bon, ba], 0)
-            y_cor = np.concatenate([y_cor, ca], 0)
-        return x, y_bon, y_cor
+            rows += [(dataset_aug, i) for i in a_idx]
+        parts = []
+        for ds in (dataset_train, dataset_aug):
+            idx = [i for d, i in rows[lo:hi] if d is ds]
+            if idx:
+                parts.append(make_training_batch(ds, idx, bat_rng,
+                                                 device=device))
+        if len(parts) == 1:
+            return parts[0]
+        (x, y_bon, y_cor), (xa, ba, ca) = parts
+        return (torch.cat([x, xa], 0), np.concatenate([y_bon, ba], 0),
+                np.concatenate([y_cor, ca], 0))
+
+    def validate_all(valid_engine):
+        """``validate`` over this rank's share of the validation set (every
+        world-th sample), the means over all of it on every rank."""
+        idx = range(rank, len(dataset_valid), world)
+        loss = validate(valid_engine, dataset_valid, args.batch_size_valid,
+                        idx)
+        if world == 1:
+            return loss
+        sums = torch.tensor([loss.get(k, 0.0) * len(idx)
+                             for k in VALID_METRICS], dtype=torch.float64,
+                            device=device)
+        dist.all_reduce(sums)
+        return {k: float(v) / len(dataset_valid)
+                for k, v in zip(VALID_METRICS, sums.tolist())}
 
     best_valid_score = resume_best
     cur_iter = (start_epoch - 1) * steps_per_epoch
     valid_engine = None  # built lazily; weights swapped in each epoch
     try:
         for epoch in range(start_epoch, args.epochs + 1):
+            # the same permutation and dropout generator on every rank;
+            # the augmentation draws of rows other than the first data
+            # rank's from a stream of their own
             ep_rng = np.random.default_rng([args.seed, epoch])
             gen = torch.Generator(device=device).manual_seed(
                 epoch_seed(args.seed, epoch))
             order = ep_rng.permutation(len(dataset_train))
             aug_order = (ep_rng.permutation(len(dataset_aug))
                          if dataset_aug is not None else None)
-            nxt = (prefetch.submit(build_batch, order, aug_order, 0, ep_rng)
+            bat_rng = (ep_rng if data_rank == 0 else
+                       np.random.default_rng([args.seed, epoch, data_rank]))
+            nxt = (prefetch.submit(build_batch, order, aug_order, 0, bat_rng)
                    if prefetch else None)
             for it in trange(steps_per_epoch, desc=f"Train ep{epoch}",
                              leave=False):
@@ -321,10 +408,10 @@ def main(argv=None):
                     x, y_bon, y_cor = nxt.result()
                     if it + 1 < steps_per_epoch:
                         nxt = prefetch.submit(build_batch, order, aug_order,
-                                              it + 1, ep_rng)
+                                              it + 1, bat_rng)
                 else:
                     x, y_bon, y_cor = build_batch(order, aug_order, it,
-                                                  ep_rng)
+                                                  bat_rng)
                 metrics = engine.step(x, y_bon, y_cor, gen)
                 cur_iter += 1
                 if tb is not None:
@@ -332,34 +419,41 @@ def main(argv=None):
                         tb.add_scalar(f"train/{k}", float(v), cur_iter)
                     tb.add_scalar("train/lr", schedule(cur_iter), cur_iter)
 
+            host = None
+            if dataset_valid is not None or epoch % args.save_every == 0:
+                host = engine.host_state()   # collective under a mesh
             if dataset_valid is not None:
-                weights = model.state_dict()
                 if valid_engine is None:
+                    # the whole model: a model sharded over 'model' serves
+                    # from a copy
+                    valid_model = (build_model(backbone, use_rnn, **build_kw)
+                                   if engine.sharded else model)
                     valid_engine = InferenceEngine(
-                        model, weights, H=H, W=W, device=device,
+                        valid_model, host["state_dict"], H=H, W=W,
+                        device=device,
                         batch_size=max(1, args.batch_size_valid))
                 else:
-                    valid_engine.update_variables(weights)
-                valid_loss = validate(valid_engine, dataset_valid,
-                                      args.batch_size_valid)
+                    valid_engine.update_variables(host["state_dict"])
+                valid_loss = validate_all(valid_engine)
                 if tb is not None:
                     for k, v in valid_loss.items():
                         tb.add_scalar(f"valid/{k}", v, epoch)
                 now_score = valid_loss["3DIoU"]
-                print(f"Ep{epoch:3d} {now_score:.4f} vs. Best "
-                      f"{best_valid_score:.4f}", flush=True)
+                say(f"Ep{epoch:3d} {now_score:.4f} vs. Best "
+                    f"{best_valid_score:.4f}", flush=True)
                 is_best = now_score > best_valid_score
                 if is_best:
                     best_valid_score = now_score
-                save_checkpoint(os.path.join(args.ckpt, args.id),
-                                engine.host_state(), backbone, use_rnn,
-                                epoch, best_valid_score, is_best,
-                                args=vars(args))
+                if rank == 0:
+                    save_checkpoint(os.path.join(args.ckpt, args.id), host,
+                                    backbone, use_rnn, epoch,
+                                    best_valid_score, is_best,
+                                    args=vars(args))
 
-            if epoch % args.save_every == 0:
+            if epoch % args.save_every == 0 and rank == 0:
                 save_model(os.path.join(args.ckpt, args.id,
                                         f"epoch_{epoch}.ckpt"),
-                           model.state_dict(), backbone, use_rnn,
+                           host["state_dict"], backbone, use_rnn,
                            args=vars(args))
     finally:
         if prefetch:

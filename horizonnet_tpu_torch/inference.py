@@ -18,12 +18,14 @@ from collections import OrderedDict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .geometry.equirect_host import infer_coory, refine_by_fix_z
 from .geometry.polygon import polygon_is_valid
 from .ops import dct as _dct
 from .ops.filters import find_peaks_np
 from .ops.yuv import unpack_yuv420_to_rgb
+from .parallel.mesh import shard_batch
 from .postproc.device import (pack_cuboid_outputs, pack_general_outputs,
                               postprocess_cuboid_batch,
                               postprocess_general_batch)
@@ -77,16 +79,27 @@ class InferenceEngine:
     [B, 1, W]); "cuboid" -> one packed [B, 17] tensor for
     postproc.unpack_cuboid_outputs; "general" -> one packed [B, 9K+17]
     candidate tensor for postproc.finish_general_batch.
+
+    Data-parallel serving (JAX's ``mesh=``): under a ``mesh``
+    (parallel/mesh.py) every rank of the data axis calls the engine on the
+    same global batch of ``batch_size``; each rank uploads, decodes, runs
+    and fits its own rows (batch_size / n_data of them), and the outputs
+    are gathered over the data group, so every rank returns the global
+    batch's result. The weights are whole on every rank.
     """
 
     def __init__(self, model, state_dict, batch_size=1, H=512, W=1024,
                  flip=False, rotate=(), postproc=None, input_format="float",
                  dct_luma_m=None, dct_chroma_m=None, dct_quality=None, *,
-                 device):
+                 device, mesh=None):
         if postproc not in (None, "cuboid", "general"):
             raise ValueError(f"unknown postproc mode {postproc!r}")
         if input_format not in INPUT_FORMATS:
             raise ValueError(f"unknown input_format {input_format!r}")
+        if mesh is not None and batch_size % mesh.n_data:
+            raise ValueError(f"batch of {batch_size} does not split over "
+                             f"{mesh.n_data} data ranks")
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.batch_size = batch_size
@@ -119,11 +132,14 @@ class InferenceEngine:
         self.model.load_state_dict(state_dict)
 
     def put(self, x):
-        """Upload a host batch in the engine's wire format."""
+        """Upload a host batch in the engine's wire format (under a mesh,
+        this rank's rows of it)."""
         dtype, shape = self._in
         x = np.asarray(x, dtype)
         if x.shape != shape:
             raise ValueError(f"batch shape {x.shape} != engine's {shape}")
+        if self.mesh is not None:
+            x, = shard_batch(self.mesh, (x,))
         return torch.from_numpy(x).to(self.device)
 
     def _decode(self, x):
@@ -150,12 +166,23 @@ class InferenceEngine:
         bon, cor = tta_forward(self.model, self._decode(x_dev), self.flip,
                                self.rotate)
         if self.postproc == "cuboid":
-            return pack_cuboid_outputs(
-                postprocess_cuboid_batch(bon, cor[:, 0], self.H, self.W))
-        if self.postproc == "general":
-            return pack_general_outputs(
-                postprocess_general_batch(bon, cor[:, 0], self.H, self.W))
-        return bon, cor
+            outs = (pack_cuboid_outputs(
+                postprocess_cuboid_batch(bon, cor[:, 0], self.H, self.W)),)
+        elif self.postproc == "general":
+            outs = (pack_general_outputs(
+                postprocess_general_batch(bon, cor[:, 0], self.H, self.W)),)
+        else:
+            outs = (bon, cor)
+        if self.mesh is not None:
+            outs = tuple(self._gather_rows(o) for o in outs)
+        return outs[0] if self.postproc else outs
+
+    def _gather_rows(self, t):
+        """Every data rank's rows of ``t``, in rank order."""
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(self.mesh.n_data)]
+        dist.all_gather(parts, t, group=self.mesh.data_group)
+        return torch.cat(parts, 0)
 
     def __call__(self, x):
         return self.run(self.put(x))

@@ -119,11 +119,12 @@ class BiLSTM(nn.Module):
             return "kernel_train" if self.impl == "kernel_train" else "plain"
         return "kernel" if self.impl == "kernel_train" else self.impl
 
-    def forward(self, x, generator=None):
+    def forward(self, x, generator=None, batch_shard=None):
         """x: [T, B, I] -> [T, B, 2H]. Train mode drops between layers with
-        masks from ``generator``."""
+        masks from ``generator`` (``batch_shard``: ops/dropout.py)."""
         return bilstm(x, self.layer_params(), self.recurrence_impl(),
-                      DROPOUT if self.training else 0.0, generator)
+                      DROPOUT if self.training else 0.0, generator,
+                      batch_shard)
 
 
 class _FeatureExtractor(nn.Module):
@@ -218,11 +219,13 @@ class HorizonNet(nn.Module):
         last = self.linear if self.use_rnn else self.linear[3]
         last.bias.copy_(head_bias(STEP_COLS))
 
-    def forward(self, x, generator=None):
+    def forward(self, x, generator=None, batch_shard=None):
         """x: [B, 3, H, W] float in [0, 1] -> (bon [B, 2, W], cor [B, 1, W]).
 
         Train mode needs ``generator`` (a torch.Generator on x's device)
-        for the dropout masks."""
+        for the dropout masks; ``batch_shard=(i, n)`` says that x is rows
+        i of n of the global batch, whose masks are drawn
+        (ops/dropout.py)."""
         B, _, H, W = x.shape
         x = ((x - self.x_mean) / self.x_std).to(self.dtype)
         x = x.contiguous(memory_format=torch.channels_last)
@@ -232,14 +235,17 @@ class HorizonNet(nn.Module):
         sc = STEP_COLS
         rate = DROPOUT if self.training else 0.0
         if self.use_rnn:
-            seq = self.bi_rnn(feature.permute(2, 0, 1), generator)
-            seq = dropout(seq, rate, generator)             # [out_w, B, 2H]
+            seq = self.bi_rnn(feature.permute(2, 0, 1), generator,
+                              batch_shard)
+            seq = dropout(seq, rate, generator, batch_shard,
+                          batch_dim=1)                      # [out_w, B, 2H]
             out = self.linear(seq)                          # [out_w, B, 3sc]
             out = out.view(out_w, B, 3, sc).permute(1, 2, 0, 3)
         else:
             first, relu, _, last = self.linear
             h = relu(first(feature.permute(0, 2, 1)))       # [B, out_w, 512]
-            out = last(dropout(h, rate, generator))         # [B, out_w, 3sc]
+            out = last(dropout(h, rate, generator,
+                               batch_shard))                # [B, out_w, 3sc]
             out = out.view(B, out_w, 3, sc).permute(0, 2, 1, 3)
         out = out.reshape(B, 3, out_w * sc).float()
         return out[:, 1:], out[:, :1]

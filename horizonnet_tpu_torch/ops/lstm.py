@@ -53,16 +53,18 @@ def bidir_layer(x, p, impl="kernel"):
     return ys[:, 0]
 
 
-def bilstm(x, params, impl="kernel", dropout_rate=0.0, generator=None):
+def bilstm(x, params, impl="kernel", dropout_rate=0.0, generator=None,
+           batch_shard=None):
     """Multi-layer bidirectional LSTM. x: [T, B, I] -> [T, B, 2H].
 
     ``dropout_rate`` > 0 drops between layers, never after the last, with
-    masks from ``generator`` (JAX: ops/lstm.py:138-146); inference passes
-    0.
+    masks from ``generator`` (JAX: ops/lstm.py:138-146; ``batch_shard``:
+    ops/dropout.py); inference passes 0.
     """
     n = len(params)
     for li, p in enumerate(params):
         x = bidir_layer(x, p, impl)
         if li < n - 1:
-            x = _dropout.dropout(x, dropout_rate, generator)
+            x = _dropout.dropout(x, dropout_rate, generator, batch_shard,
+                                 batch_dim=1)
     return x

@@ -148,13 +148,16 @@ class TrainState:
         self.opt.to(device)
         return self
 
-    def host(self):
+    def host(self, full=dict):
         """The state on the host, for train/checkpoint.py: {"step",
-        "state_dict", "moments", "spec"} with CPU tensors."""
+        "state_dict", "moments", "spec"} with CPU tensors. ``full`` maps
+        {name: tensor} on the device to the whole tensors (under tensor
+        parallelism train/engine.py gathers the channel shards)."""
+        sd = full({k: v.detach() for k, v in
+                   self.model.state_dict().items()})
         return {"step": self.step,
-                "state_dict": {k: v.detach().cpu() for k, v in
-                               self.model.state_dict().items()},
-                "moments": {k: {n: t.cpu() for n, t in m.items()}
+                "state_dict": {k: v.cpu() for k, v in sd.items()},
+                "moments": {k: {n: t.cpu() for n, t in full(m).items()}
                             for k, m in self.opt.moments.items()},
                 "spec": self.opt.spec}
 
@@ -173,15 +176,22 @@ def _nchw(x):
     return x.permute(0, 3, 1, 2)
 
 
-def train_step(state, x, y_bon, y_cor, generator):
+def train_step(state, x, y_bon, y_cor, generator, net=None,
+               batch_shard=None):
     """One optimization step. x [B, H, W, 3] float in [0, 1]; y_bon
     [B, 2, W]; y_cor [B, 1, W]; ``generator`` draws the dropout masks.
-    Returns {"total", "bon", "cor"} as detached tensors (no sync)."""
+    Returns {"total", "bon", "cor"} as detached tensors (no sync).
+
+    Under a mesh (train/engine.py) ``net`` is the DistributedDataParallel
+    wrapper of ``state.model``, the batch is this rank's rows
+    ``batch_shard`` of the global batch, and the losses are this rank's
+    means."""
     model = state.model
     model.train()
     for p in model.parameters():
         p.grad = None
-    bon, cor = model(_nchw(x), generator)
+    bon, cor = (model if net is None else net)(_nchw(x), generator,
+                                               batch_shard)
     bon_loss, cor_loss = loss_terms(bon, cor, y_bon, y_cor)
     total = bon_loss + cor_loss
     total.backward()

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 from horizonnet_tpu_torch.data import synth
 from horizonnet_tpu_torch.models import build_model
 from horizonnet_tpu_torch.models.torch_convert import state_dict_to_variables
+from horizonnet_tpu_torch.parallel import Mesh
 from horizonnet_tpu_torch.train import checkpoint
 from horizonnet_tpu_torch.train.engine import TrainEngine
 from horizonnet_tpu_torch.train.schedule import warmup_poly_schedule
@@ -162,9 +163,11 @@ def test_engine_refuses_what_it_cannot_run():
     with pytest.raises(ValueError, match="shape"):
         eng.step(np.zeros((B, H, W + 4, 3), np.float32),
                  *_batch(0)[1:], torch.Generator())
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # a mesh whose data axis does not split the batch (checked before any
+    # collective)
+    with pytest.raises(ValueError, match="split over 3 data ranks"):
         TrainEngine(eng.model, eng.state, B, H, W, device="cpu",
-                    mesh=object())
+                    mesh=Mesh(3, 1, 0, 0, None, None))
     with pytest.raises(ValueError, match="Generator"):
         eng.step(*_batch(0), None)
     if not torch.cuda.is_available():
@@ -231,13 +234,17 @@ def test_cli_trains_model_options(tmp_path, backbone, extra):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--valid_root_dir", "", "--n_model", "2"], "item 9"),
+    (["--valid_root_dir", "", "--n_model", "2"], "torchrun"),
 ])
-def test_cli_refuses_paths_still_to_port(tmp_path, extra, match):
+def test_cli_refuses_paths_still_to_port(tmp_path, extra, match,
+                                         monkeypatch):
+    """Without torchrun (no WORLD_SIZE) the CLI is one process: a tensor-
+    parallel axis other than 1 is refused before any data is read."""
     from horizonnet_tpu_torch.cli.train import main
 
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     _png_dataset(str(tmp_path / "train"), 1, 128)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         main(["--id", "t", "--ckpt", str(tmp_path / "ckpt"),
               "--train_root_dir", str(tmp_path / "train"), "--device", "cpu",
               *extra])
