@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases kernel densenet quant    # model options
     python3 chip_smoke.py --phases preprocess               # VP alignment
     python3 chip_smoke.py --phases eval                     # evals, tools
+    python3 chip_smoke.py --phases parity                   # parity_eval
     python3 chip_smoke.py --phases kernel parallel          # the mesh
 
 Phases; any failed check makes the script exit non-zero:
@@ -175,6 +176,26 @@ Phases; any failed check makes the script exit non-zero:
             warp runs on the card; horizonnet_tpu_torch/tools/
             trace_serving.py 64 dct4 cuboid 12: the flagship's batch by
             kernel, K1 among them, and the device-busy share.
+  parity    horizonnet_tpu_torch/tools/parity_eval.py, the weights-parity
+            harness, each run in a fresh process that reports K1's
+            launches and its stages' seconds at exit. (1) the golden
+            checkpoint in f32 with TF32 off on 16 copies of val_room (the
+            first unrolled, the others rolled by columns from seed 1) with
+            rolled labels, --dataset custom in --mode general
+            (val_room_cor.txt) and --mode cuboid (its plan bounding box as
+            an 8-corner cuboid), with --device cuda and again with
+            --device cpu: every metric, as the tool's own eval functions
+            compute it from the JSONs each run kept, on the card within
+            PARITY_TOL points of the CPU's; K1 launched on the card, not
+            on the CPU; the verdicts in this process: exit 0 with --expect
+            at the card's 3DIoU, exit 2 at 50 points more. (2) full width:
+            resnet50_rnn with random weights from seed 0 written as a
+            reference .pth, 16 raw panos (val_room and two rotations of it
+            by a known R, as in the preprocess phase, rolled from seed 1,
+            with rolled labels), --bf16 --device_postproc --batch_size 8
+            --need_preprocess: exit 0, every aligned pano scored, finite
+            metrics (random weights: no bar), K1 launched; the seconds a
+            pano of the alignment, the inference and the eval.
   parallel  the multi-process layout (horizonnet_tpu_torch/parallel), for
             its semantics: the card machine has one card, so two ranks
             share it and no time here is a multi-GPU speed. Each part in
@@ -193,7 +214,11 @@ Phases; any failed check makes the script exit non-zero:
             statistics within PAR_BARS, the parameters after one Adam step
             within one step of one process's; at n_model 2 a rank holds
             half the encoder's parameter bytes; K2/K3 launched on every
-            rank; ms a step per layout. (3) data-parallel serving on two
+            rank; ms a step per layout; then the float32 distance of
+            (2, 1) taken apart: one process with cuDNN off against with
+            it, and (2, 1) with cuDNN off on both ranks against one
+            process with it off (printed, no bar). (3) data-parallel
+            serving on two
             ranks: the golden f32 (TF32 off) in cuboid and general mode
             within 2 px of golden_outputs.npz on every rank; the flagship
             (resnet50_rnn bf16, B=64, dct4) finite [64, 8, 2] on every
@@ -201,15 +226,19 @@ Phases; any failed check makes the script exit non-zero:
             2 px of the one-process engine's (bf16 ties); K1 launched on
             every rank.
 
-Before the last line it prints the card's name and power limit, and one
+After the log of the phases it prints a summary: the card's name and
+power limit, then one compact line of headline numbers a phase
+("summary <phase> {json}"), so that they stay inside the end of the
+output when only that end is seen. Before the last line it prints one
 JSON line {"kernels": [...]} with each kernel's launches on the paths
 that run it, summed (K1: the flagship, densenet121 and int8 serving
-runs, the preprocess chain and the eval phase's inference CLI runs, each
-in a fresh process that reports its count, and the parallel phase's
-serving ranks; K2, K3: the resnet50 and densenet121 train runs and the
-parallel phase's torchrun run and ranks; K4: the fused run; each counted
-from 0 just before its run, and logged by path), its error against the
-twin, its time beside the twin's, its bound and the library call's time.
+runs, the preprocess chain, the eval phase's inference CLI runs and the
+parity phase's card runs, each in a fresh process that reports its
+count, and the parallel phase's serving ranks; K2, K3: the resnet50 and
+densenet121 train runs and the parallel phase's torchrun run and ranks;
+K4: the fused run; each counted from 0 just before its run, and logged
+by path), its error against the twin, its time beside the twin's, its
+bound and the library call's time.
 K4's times and bound are summed over the 12 calls of one resnet50
 forward (2, 3, 5 and 2 at the four stage shapes).
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -230,7 +259,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, "tests", "fixtures", "golden")
 PHASES = ("kernel", "golden", "flagship", "fused", "general", "cli", "host",
           "train", "train_cli", "dynamics", "densenet", "quant",
-          "preprocess", "eval", "parallel")
+          "preprocess", "eval", "parity", "parallel")
 # H100 SXM peaks: f32 outside the tensor cores, bf16 dense on the tensor
 # cores, and HBM3
 PEAK_F32_FLOPS = 67e12
@@ -323,6 +352,27 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
+def note(state, **numbers):
+    """Keep headline numbers of the running phase: main prints them as one
+    compact line a phase after the log, so that they stay inside the end
+    of the output that a caller may see alone."""
+    state["summary"].setdefault(state["phase"], {}).update(numbers)
+
+
+def _compact(v):
+    """``v`` with its floats at 6 significant digits and its numpy or
+    torch scalars as Python numbers, for the summary."""
+    if isinstance(v, dict):
+        return {k: _compact(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return [_compact(x) for x in v]
+    if hasattr(v, "item"):
+        v = v.item()
+    if isinstance(v, float):
+        return float(f"{v:.6g}")
+    return v
+
+
 def _launched(state, kernel, path, n):
     """Record ``kernel``'s launches on one path's run, counted from 0 just
     before it; the kernels line sums the paths."""
@@ -401,6 +451,8 @@ def phase_kernel(state):
     log(f"K1 recurrence bf16 T={T} D={D} H={H}: B=1 {small[1]:.3f} ms, B=8 "
         f"{small[8]:.3f} ms, B=64 {ms_k:.3f} ms (CUDA events, median) "
         f"[{state['card']}]")
+    note(state, k1_ms_by_batch={1: small[1], 8: small[8], 64: ms_k},
+         k1_err_bf16=errbf, k1_same_share=same)
     _one_kernel_per_call("K1",
                          lambda: cuda_lstm.bilstm_recurrence_cuda(xw, w))
 
@@ -430,6 +482,7 @@ def phase_kernel(state):
     log(f"bi-LSTM layer bf16 [T={T},B={B},I={I},H={H}]: port (matmul + K1) "
         f"{ms_layer:.3f} ms; comparator cuDNN nn.LSTM {ms_cudnn:.3f} ms; "
         f"max|port - cuDNN| = {diff:.3e} [{state['card']}]")
+    note(state, k1_layer_ms=ms_layer, k1_layer_cudnn_ms=ms_cudnn)
     # K1's route: three exact bf16 products per step on the tensor cores;
     # beside it the bound of the same products as f32 CUDA-core FMAs
     nbytes, flops = lstm_bytes_flops(T, D, B, H, 2)
@@ -556,6 +609,7 @@ def phase_kernel_train(state, g):
             check(same3 >= K3_SAME_BAR, f"K3 bf16 equals the twin on "
                   f"{same3} of its outputs: its products lose the f32 "
                   "contract")
+            note(state, k2_same_share=min(same2), k3_same_share=same3)
             _one_kernel_per_call("K2", lambda: clt.train_fwd_cuda(xw, w))
             _one_kernel_per_call("K3", lambda: clt.train_bwd_cuda(
                 gates, cs, dys, w))
@@ -640,6 +694,9 @@ def phase_kernel_train(state, g):
         f"[{card}]")
     log(f"K2/K3 host time per call at B={B} (20 calls queued, no sync): K2 "
         f"{host[0]:.3f} ms, K3 {host[1]:.3f} ms")
+    note(state, k2_ms_by_batch=ms2b, k3_ms_by_batch=ms3b,
+         k2_k3_host_ms=host, train_layer_ms=ms_port_fb,
+         train_layer_cudnn_ms=ms_cudnn_fb)
     log(f"bi-LSTM layer bf16 [T={T},B={B},I={I},H={H}] forward + backward: "
         f"port (projection + K2 + K3 + dW, f32 master weights) "
         f"{ms_port_fb:.3f} ms; cuDNN nn.LSTM {ms_cudnn_fb:.3f} ms (forward "
@@ -738,6 +795,7 @@ def phase_kernel_fused(state, g):
 
     # bf16 at the resnet50 stage shapes, B=64: 3e-2 relative; timed
     tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    by_stage = {k: [] for k in tot}
     t_ops = t_bytes = 0.0
     for (B, H, W, C), n in zip(STAGES, RESNET50_IDENTITY):
         Wd = C // 4
@@ -772,12 +830,16 @@ def phase_kernel_fused(state, g):
         for k, v in (("ms", ms), ("plain_ms", mp), ("bound_ms", bms),
                      ("library_ms", ml)):
             tot[k] += n * v
+            by_stage[k].append(v)
         t_ops += n * flops / PEAK_BF16_FLOPS
         t_bytes += n * nbytes / PEAK_BYTES
     log(f"K4 over the 12 identity blocks of one resnet50 forward (B=64, bf16)"
         f": kernel {tot['ms']:.3f} ms, plain twin {tot['plain_ms']:.3f} ms, "
         f"unfused Bottlenecks {tot['library_ms']:.3f} ms, bound "
         f"{tot['bound_ms']:.3f} ms [{card}]")
+    note(state, k4_stage_ms=by_stage["ms"],
+         k4_stage_unfused_ms=by_stage["library_ms"],
+         k4_stage_bound_ms=by_stage["bound_ms"], k4_bf16_edge_worst=worst)
     state["kernels"]["fused_bottleneck"].update(
         max_abs_err=err, bound_by="operations" if t_ops >= t_bytes
         else "bytes", **tot)
@@ -816,6 +878,7 @@ def phase_golden(state):
         log(f"golden {name}: corners {dpx:.4f} px from golden_outputs.npz, "
             f"|dz1| {dz1:.4f}, K1 launches {ran}"
             + (" (TF32 off)" if dtype == torch.float32 else ""))
+        note(state, **{f"{name}_px": dpx, f"{name}_dz1": dz1})
         check(ran > 0, f"golden {name}: K1 was not launched")
         if dtype == torch.float32:
             check(dpx < 2.0, f"golden f32 corners off by {dpx} px")
@@ -933,6 +996,8 @@ def phase_flagship(state):
         f"{statistics.median(device):.1f} panos/s (runs "
         f"{[round(v, 1) for v in device]}), peak memory {peak:.1f} GiB, "
         f"K1 launches {launches} [{state['card']}]")
+    note(state, serving=statistics.median(serving),
+         device=statistics.median(device), peak_gib=peak)
 
 
 def phase_fused(state):
@@ -966,6 +1031,7 @@ def phase_fused(state):
         f"max corner drift {drift.max():.3f} px, median "
         f"{np.median(drift):.3f} px")
     check(bool(np.isfinite(cid["fused"]).all()), "fused corners not finite")
+    note(state, drift_max_px=float(drift.max()))
 
     def finish(outs):
         cid, z1 = unpack_cuboid_outputs(outs)
@@ -999,6 +1065,7 @@ def phase_fused(state):
         f"{[round(v, 1) for v in device['unfused']]} / "
         f"{[round(v, 1) for v in device['fused']]}); K4 launches {launches} "
         f"({forwards} forwards) [{card}]")
+    note(state, serving=med, device=dmed)
     del engs, xs
     torch.cuda.empty_cache()
 
@@ -1019,6 +1086,7 @@ def phase_fused(state):
     log(f"fused vs unfused resnet50_rnn f32 B=1 512x1024 (randomized batch "
         f"norm, TF32 off): max|bon| diff {db:.2e}, max|cor| diff {dc:.2e} "
         f"(tol 2e-4), K4 launches {fused_block.launches}")
+    note(state, f32_bon_diff=db, f32_cor_diff=dc)
     check(fused_block.launches == 12, "the f32 fused model did not run K4 "
           "12 times")
     check(db <= 2e-4 and dc <= 2e-4, f"fused f32 model off: {db}, {dc}")
@@ -1049,6 +1117,7 @@ def phase_general(state):
         log(f"golden general f32 ({fmt} wire, TF32 off): {n} corners, "
             f"{dpx:.4f} px from general_uv, |dz1| {dz1:.4f}; corners "
             f"{np.round(cor_id, 4).tolist()}")
+        note(state, **{f"golden_{fmt}_px": dpx, f"golden_{fmt}_dz1": dz1})
         check(dpx < 2.0, f"golden general ({fmt}) corners off by {dpx} px")
         if fmt == "float":
             check(dz1 < 0.2, f"golden general z1 off by {dz1}")
@@ -1087,6 +1156,8 @@ def phase_general(state):
         f"{[round(v, 1) for v in device['cuboid']]}); the host tail of one "
         f"batch (fetch + finish_general_batch, one thread) "
         f"{t_tail * 1e3:.1f} ms [{card}]")
+    note(state, serving=statistics.median(serving), device=dmed,
+         tail_ms=t_tail * 1e3)
 
 
 def _reference_pth(path, model, sd, infix=True, fmt="self_describing"):
@@ -1162,6 +1233,7 @@ def phase_host(state):
             dz1 = abs(got["z1"] - float(want[f"{mode}_z1"]))
             log(f"host CLI {mode} (f32, TF32 off): corners {dpx:.4f} px "
                 f"from golden_outputs.npz, |dz1| {dz1:.4f}")
+            note(state, **{f"golden_cli_{mode}_px": dpx})
             check(dpx < 2.0, f"host CLI {mode} corners off by {dpx} px")
             check(dz1 < 0.2, f"host CLI {mode} z1 off by {dz1}")
             jsons[mode] = got
@@ -1293,6 +1365,8 @@ def phase_host(state):
         f"{med['device']:.1f} panos/s in turns (runs "
         f"{[round(v, 1) for v in rates['device']]}); K1 launches {launches} "
         f"in {forwards} forwards [{card}]")
+    note(state, forward_ms=ms_dev, postprocess_ms_a_pano=ms_pano,
+         e2e=med)
     del flag
     torch.cuda.empty_cache()
 
@@ -1391,6 +1465,8 @@ def phase_dynamics(state):
         f"{n_val} rooms (bar {DYNAMICS_BAR}; K1 launches {k1}); validate() "
         f"on the same rooms at batch {n_val}: 3DIoU {v['3DIoU']:.4f}, "
         f"2DIoU {v['2DIoU']:.4f}, loss {v['total']:.4f} [{card}]")
+    note(state, train_s=t_train, loss=[early, late], heldout_3diou=iou3d,
+         validate_3diou=v["3DIoU"])
     check(abs(v["3DIoU"] - iou3d) < 1e-3, f"validate() 3DIoU {v['3DIoU']} "
           f"differs from the per-room loop's {iou3d}")
     check(iou3d >= DYNAMICS_BAR, f"held-out 3DIoU {iou3d:.4f} below the bar "
@@ -1467,6 +1543,7 @@ def phase_train(state):
     log(f"train batch: {B} PNGs read, labelled and augmented on the card in "
         f"{t_batch:.2f} s (first call); augmentation alone {ms_aug:.3f} ms "
         f"(uint8 wire, CUDA events) [{card}]")
+    note(state, batch_s=t_batch, augment_ms=ms_aug)
 
     model = build_model("resnet50", True, device=dev, dtype=torch.bfloat16,
                         lstm_impl="kernel_train", param_dtype=torch.float32,
@@ -1510,6 +1587,9 @@ def phase_train(state):
         f"{statistics.median(step_ms):.2f} ms/step, peak memory {peak:.2f} "
         f"GiB, K2 launches {k2}, K3 launches {k3}; loss {first:.4f} -> "
         f"{last:.4f} over {len(losses)} steps on one batch [{card}]")
+    note(state, panos_s=statistics.median(rates), runs=rates,
+         step_ms=statistics.median(step_ms), peak_gib=peak,
+         loss=[first, last])
 
     # where the time goes: CUDA events around the parts of one step
     xs = x.permute(0, 3, 1, 2)
@@ -1536,6 +1616,7 @@ def phase_train(state):
     log(f"train step stages (CUDA events, median of 5): forward + loss "
         f"{med[0]:.2f} ms, backward {med[1]:.2f} ms, optimizer "
         f"{med[2]:.2f} ms [{card}]")
+    note(state, stages_ms=med)
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1559,6 +1640,8 @@ def phase_train(state):
         f"wall (idle share {100 * (1 - busy / wall):.1f} %); top kernels:")
     for t, key in rows[:12]:
         log(f"  {t:8.3f} ms  {100 * t / busy:5.1f} %  {key[:90]}")
+    note(state, profiled_busy_ms=busy, profiled_wall_ms=wall,
+         top_kernels=[[t, key[:40]] for t, key in rows[:5]])
 
 
 def phase_train_cli(state):
@@ -1647,6 +1730,7 @@ def phase_train_cli(state):
         f"largest relative difference of a weight tensor from the unbroken "
         f"run's {rel:.3e} ({worst}; cuDNN's backward is not "
         "bit-reproducible, no bar)")
+    note(state, two_epochs_s=t_a, best_3diou=score, resume_rel=rel)
 
 
 def phase_cli(state):
@@ -1678,6 +1762,7 @@ def phase_cli(state):
         dpx = float(np.abs(uv - ref).max() * 512)
         log(f"cli {mode}: val_room.json corners {dpx:.4f} px from "
             "golden_outputs.npz")
+        note(state, **{f"{mode}_px": dpx})
         check(dpx < 2.0, f"{mode} CLI corners off by {dpx} px")
 
 
@@ -1690,6 +1775,10 @@ def _in_turns(engs, a, b, feed, xs, finish, reps):
     for name in (a, b, b, a) * reps:
         device[name].append(_device_rate(engs[name], xs, len(feed)))
     return serving, device
+
+
+def _medians(rates):
+    return {k: statistics.median(v) for k, v in rates.items()}
 
 
 def _turns_line(serving, device):
@@ -1726,6 +1815,7 @@ def _top_kernels(name, fn, n=2, top=8):
     log(f"{name}: profiler device busy {busy:.2f} ms a call; top kernels:")
     for t, key in rows[:top]:
         log(f"  {t:8.3f} ms  {100 * t / busy:5.1f} %  {key[:90]}")
+    return {"busy_ms": busy, "top": [[t, key[:40]] for t, key in rows[:5]]}
 
 
 def phase_densenet(state):
@@ -1772,8 +1862,10 @@ def phase_densenet(state):
         f"flagship, in turns (densenet121, resnet50, resnet50, densenet121) "
         f"x {reps}: {_turns_line(serving, device)}; densenet121 peak memory "
         f"{peak:.1f} GiB, K1 launches {k1} in {n_batches} forwards [{card}]")
-    _top_kernels(f"densenet121 serving, one B={B} batch",
-                 lambda: engs["densenet121"].run(xs[0]))
+    note(state, serving=_medians(serving), device=_medians(device),
+         peak_gib=peak, profile=_top_kernels(
+             f"densenet121 serving, one B={B} batch",
+             lambda: engs["densenet121"].run(xs[0])))
     del engs, xs
     torch.cuda.empty_cache()
 
@@ -1798,6 +1890,7 @@ def phase_densenet(state):
             f"launches {cuda_lstm.launches}")
         check(cuda_lstm.launches == 2, f"{bb}: K1 was not launched twice")
         check(max(rb, rc) <= 2e-4, f"{bb} card off the CPU: {rb}, {rc}")
+        note(state, **{f"{bb}_f32_rel": max(rb, rc)})
         del cpu, gpu
 
     # training: densenet121 at the train phase's configuration
@@ -1836,6 +1929,8 @@ def phase_densenet(state):
         f"warm-up), peak memory {peak:.2f} GiB, K2 launches {k2}, K3 "
         f"launches {k3}; loss {first:.4f} -> {last:.4f} over {len(losses)} "
         f"steps on one batch [{card}]")
+    note(state, train_panos_s=n_steps * TRAIN_B / dt,
+         train_step_ms=dt / n_steps * 1e3, train_peak_gib=peak)
     del eng, st, model
     torch.cuda.empty_cache()
 
@@ -1890,8 +1985,10 @@ def phase_quant(state):
         f"{peak:.1f} GiB, K1 launches {k1} in {n_batches} forwards; first "
         f"batch corner drift int8 against bf16 (random weights) max "
         f"{drift.max():.3f} px, median {np.median(drift):.3f} px [{card}]")
-    _top_kernels(f"int8 serving, one B={B} batch",
-                 lambda: engs["int8"].run(xs[0]), top=12)
+    note(state, serving=_medians(serving), device=_medians(device),
+         peak_gib=peak, drift_max_px=float(drift.max()),
+         profile=_top_kernels(f"int8 serving, one B={B} batch",
+                              lambda: engs["int8"].run(xs[0]), top=12))
     del engs, xs
     torch.cuda.empty_cache()
 
@@ -1936,6 +2033,7 @@ def phase_quant(state):
             f"outputs equal bit for bit: {bool(torch.equal(y0, y1))} "
             f"(CUDA events, median) [{card}]")
         check(same, f"{name}: the card's int32 sums differ from the CPU's")
+        note(state, **{name.split()[0] + "_ms": ms})
         check(bool(torch.equal(y0, y1)), f"{name}: WrapConv seam_fix "
               "differs from the materialized pad")
         del xb, y0, y1, convs, qd
@@ -1957,6 +2055,7 @@ def phase_quant(state):
     log(f"golden quantized (f32, TF32 off): int8 corners {dpx:.4f} px from "
         f"the float ones (bar 4), |dz1| {dz1:.4f} (bar "
         f"{0.05 * abs(float(zf[0])) + 1:.3f})")
+    note(state, golden_int8_px=dpx, golden_int8_dz1=dz1)
     check(dpx < 4.0, f"golden int8 corners drifted {dpx} px")
     check(dz1 < 0.05 * abs(float(zf[0])) + 1.0, f"golden int8 z1 off {dz1}")
 
@@ -1984,6 +2083,7 @@ def phase_quant(state):
         dz1 = abs(got["z1"] - float(want["cuboid_z1"]))
         log(f"cli --quant_int8 --force_cuboid ({mode}): corners {dpx:.4f} "
             f"px from golden_outputs.npz (float; bar 4), |dz1| {dz1:.4f}")
+        note(state, **{f"cli_{mode}_px": dpx})
         check(dpx < 4.0, f"--quant_int8 CLI ({mode}) off by {dpx} px")
         check(dz1 < 0.05 * abs(float(want["cuboid_z1"])) + 1.0,
               f"--quant_int8 CLI ({mode}) z1 off by {dz1}")
@@ -2038,7 +2138,7 @@ def _wall_ms(fn, reps=5):
     return statistics.median(times)
 
 
-def _preprocess_warps(room):
+def _preprocess_warps(state, room):
     """The device backend's warps on the card against the host backend at
     512x1024, at the JAX package's bars between its two backends; each
     timed on both (wall ms, transfers included: what the pipeline pays)."""
@@ -2069,6 +2169,7 @@ def _preprocess_warps(room):
         log(f"preprocess warp {name} {tuple(dev.shape)}: card against host "
             f"{kind} difference {e:.6g} (bar {bar}); device backend "
             f"{ms_d:.3f} ms, host backend {ms_h:.3f} ms (wall, median of 5)")
+        note(state, **{f"warp_{name}": [e, ms_d, ms_h]})
         check(e < bar, f"{name}: card against host {e} over {bar}")
 
 
@@ -2151,7 +2252,7 @@ def phase_preprocess(state):
         + ", ".join(os.path.basename(lib._name) for lib in libs.values()))
 
     room, _ = _golden_inputs()
-    _preprocess_warps(room)
+    _preprocess_warps(state, room)
 
     raws = {n: (room if n == "room" else host_resample
                 .rotate_panorama_uint8_host(room, R=_yaw_tilt(*yt)))
@@ -2172,6 +2273,7 @@ def phase_preprocess(state):
             f"{between:.6f} deg (bar 0.05); against R vp0: vertical "
             f"{vert:.4f} deg (bar 0.1), horizontals "
             f"{horiz[0]:.4f}, {horiz[1]:.4f} deg (bar 1.5)")
+        note(state, **{f"vp_{name}_deg": [between, vert, *horiz]})
         check(between < 0.05, f"{name}: backends' VPs {between} deg apart")
         check(vert < 0.1, f"{name}: vertical VP {vert} deg from R vp0")
         check(max(horiz) < 1.5, f"{name}: horizontal VP {horiz} deg off")
@@ -2248,6 +2350,8 @@ def phase_preprocess(state):
             f"lsd_workers=1, median of {len(times)} warm panos): "
             f"{single[backend]:.4f} s; per stage ms a pano: "
             + ", ".join(f"{k} {v:.2f}" for k, v in split[backend].items()))
+        note(state, **{f"s_a_pano_{backend}": single[backend],
+                       f"stages_ms_{backend}": split[backend]})
 
     eng(pack_dct4(np.stack([room] * B)))            # warm the engine
     torch.cuda.synchronize()
@@ -2283,10 +2387,13 @@ def phase_preprocess(state):
         f"{statistics.median(rates['device']):.2f} (runs "
         f"{[round(v, 2) for v in rates['device']]}); K1 launches "
         f"{launches} [{state['card']}]")
+    note(state, chain=_medians(rates), chain_missed={b: len(next(iter(m))) for b, m in misses.items()})
     for backend, split in stages.items():
         log(f"chain ({backend} backend) per stage ms a pano in its thread, "
             f"beside {workers - 1} others: "
             + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in split.items()))
+        note(state, **{f"chain_stages_ms_{backend}": {
+            k: v * 1e3 for k, v in split.items()}})
 
 
 EVAL_N = 16
@@ -2464,6 +2571,7 @@ def phase_eval(state):
             f"host postprocess, {EVAL_N} panos, process start included): "
             f"cuboid {wall['cuboid']:.2f} s, general {wall['general']:.2f} "
             f"s; K1 launches {launches}")
+        note(state, cli_s=wall)
 
         # the eval CLIs against the metrics computed in this process
         for cli, mode, gt_dir in (("eval_cuboid", "cuboid", "gt_cuboid"),
@@ -2493,6 +2601,7 @@ def phase_eval(state):
             log(f"{cli}: {t_cli / EVAL_N:.4f} s a pano through the CLI "
                 f"(process start included), {t_here / EVAL_N * 1e3:.2f} ms "
                 f"a pano in-process [{card}]")
+            note(state, **{f"{cli}_{mode}_s_a_pano": t_cli / EVAL_N})
             if cli == "eval_cuboid":
                 cpu = {"CE": [], "PE": [], "3DIoU": []}
                 test_cuboid((want["cuboid_uv"] * [1024, 512]).astype(
@@ -2506,6 +2615,7 @@ def phase_eval(state):
                     f"{min(per_pano):.4f}-{max(per_pano):.4f}")
                 check(diff < 2.0, f"golden 3DIoU {per_pano[0]} is {diff} "
                       f"points from the CPU's {cpu['3DIoU'][0]}")
+                note(state, golden_3diou=[per_pano[0], cpu["3DIoU"][0]])
 
         # --profile_dir: the host path (cuboid) and the device postprocess
         # (general, the tail on serve_stream's worker threads)
@@ -2532,6 +2642,7 @@ def phase_eval(state):
         log(f"inference CLI wall with the profiler {prof_wall['cuboid']:.2f}"
             f" s against {wall['cuboid']:.2f} s without (cuboid, host path, "
             f"{EVAL_N} panos, process start included) [{card}]")
+        note(state, profiler_cli_s=prof_wall)
 
         # layout_viewer on the card's cuboid JSON and on the CPU's
         counts = {}
@@ -2624,6 +2735,10 @@ def phase_eval(state):
     log(f"trace_serving: device busy {100 * summary['busy_share']:.1f} % of "
         f"the batch's {summary['span_ms']:.3f} ms span; K1 "
         + ", ".join(f"{k[:40]} {v:.3f} ms" for k, v in k1.items()))
+    note(state, trace_busy=summary["busy_share"],
+         trace_span_ms=summary["span_ms"], trace_k1_ms=sum(k1.values()),
+         trace_top=sorted(([v, k[:40]] for k, v in
+                           summary["kernels"].items()), reverse=True)[:6])
     _launched(state, "bilstm_fwd", "eval", launches)
 
 
@@ -2788,17 +2903,39 @@ def _par_compare(got, ref):
     return out
 
 
-def _par_train_rank(ref_path, layouts):
+def _par_one_process(cudnn, group=None):
+    """The one-process float32 step of _par_train_setup (_par_step's
+    result) with cuDNN on or off; with ``group``, a one-rank process group,
+    the batch norms take their statistics through the sync formula of
+    models/layers.py::BatchNorm2d instead of torch's kernel."""
+    import torch
+    from horizonnet_tpu_torch.models.layers import BatchNorm2d
+
+    torch.backends.cudnn.enabled = cudnn
+    try:
+        eng, batch, gen = _par_train_setup(torch.float32)
+        if group is not None:
+            for m in eng.model.modules():
+                if isinstance(m, BatchNorm2d):
+                    m.data_group = group
+        return _par_step(eng, batch, gen)
+    finally:
+        torch.backends.cudnn.enabled = True
+        torch.cuda.empty_cache()
+
+
+def _par_train_rank(ref_path, layouts, cudnn=True):
     """One rank of the parallel phase's train check: for each compute dtype
     and layout, the first step against one process's (``ref_path``),
     K2/K3's launches, the encoder's parameter bytes here and whole, and
-    ms a step."""
+    ms a step; with cudnn=False the convolutions run without cuDNN."""
     import torch
     from horizonnet_tpu_torch.ops import cuda_lstm_train as clt
     from horizonnet_tpu_torch.parallel import make_mesh, shard_batch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.enabled = cudnn
     refs = torch.load(ref_path, weights_only=False)
     out = []
     for name, ref in refs.items():
@@ -2820,6 +2957,57 @@ def _par_train_rank(ref_path, layouts):
             del eng
             torch.cuda.empty_cache()
     return out
+
+
+def _par_apart(state, root, ref):
+    """The float32 (TF32 off) distance of layout (2, 1) from one process,
+    taken apart by what changes the rounding: the convolutions' algorithms
+    (cuDNN on or off), the batch norm's statistics (the sync formula over a
+    one-rank group against torch's kernel) and the layout itself (two
+    ranks against one process with the same formula, cuDNN on and off).
+    ``ref``: the one-process step with cuDNN and torch's batch norm."""
+    import torch
+    import torch.distributed as dist
+    from horizonnet_tpu_torch.parallel.dryrun import run_ranks
+
+    card = state["card"]
+    t0 = time.perf_counter()
+    dist.init_process_group("gloo", world_size=1, rank=0, init_method=(
+        "file://" + os.path.join(root, "one_rank_store")))
+    try:
+        one = {(cudnn, sync): _par_one_process(
+            cudnn, dist.group.WORLD if sync else None)
+            for cudnn, sync in ((False, False), (True, True), (False, True))}
+    finally:
+        dist.destroy_process_group()
+    apart = {}
+    for cudnn in (True, False):
+        path = os.path.join(root, f"ref_sync_{cudnn}.pt")
+        torch.save({"float32": one[cudnn, True]}, path)
+        apart[cudnn] = run_ranks(_par_train_rank, 2, path, ((2, 1),), cudnn,
+                                 device="cuda", timeout=600)[0][0]
+    algo = _par_compare(one[False, False], ref)
+    sync = _par_compare(one[True, True], ref)
+    log(f"parallel train float32 (TF32 off), the (2, 1) distance taken "
+        f"apart, gradients over the whole model (worst conv-stack tensor): "
+        f"one process, cuDNN off against on {algo['grad_all']:.2e} "
+        f"({algo['grad_conv'][0]:.2e}); one process, the sync batch norm's "
+        f"formula against torch's {sync['grad_all']:.2e} "
+        f"({sync['grad_conv'][0]:.2e}); (2, 1) against one process with the "
+        f"same formula, cuDNN on {apart[True]['grad_all']:.2e} "
+        f"({apart[True]['grad_conv'][0]:.2e}), cuDNN off "
+        f"{apart[False]['grad_all']:.2e} "
+        f"({apart[False]['grad_conv'][0]:.2e}); bi-LSTM and head "
+        f"{apart[True]['grad_head'][0]:.2e} / "
+        f"{apart[False]['grad_head'][0]:.2e}, statistics "
+        f"{apart[True]['stats']:.2e} / {apart[False]['stats']:.2e} "
+        f"({time.perf_counter() - t0:.1f} s) [{card}]")
+    note(state, f32_cudnn_off=[algo["grad_all"], algo["grad_conv"][0]],
+         f32_sync_formula=[sync["grad_all"], sync["grad_conv"][0]],
+         f32_21_vs_sync_one={
+             "cudnn_" + ("on" if c else "off"): [
+                 r["grad_all"], r["grad_conv"][0], r["grad_head"][0],
+                 r["stats"], r["loss"]] for c, r in apart.items()})
 
 
 def _par_serve_rank(wire_path):
@@ -2910,6 +3098,7 @@ def phase_parallel(state):
             f"{alone} without torchrun (relative {rel[0]:.2e}, "
             f"{rel[1]:.2e}; bars {PAR_CLI_BARS}), K2 {k2}, K3 {k3} "
             f"launches; epoch_1.ckpt loads, finite [{card}]")
+        note(state, torchrun_loss_rel=rel)
 
         # 2. two ranks sharing the card (gloo) at each layout against one
         # process on the card, in float32 and in bf16
@@ -2933,6 +3122,8 @@ def phase_parallel(state):
                 f"worst conv-stack tensor {rep['grad_conv'][0]:.2e}, "
                 f"{100 * rep['flip']:.3f} % of parameters moved the other "
                 f"way [{card}]")
+            note(state, **{f"self_{name}": [rep["loss"], rep["grad_all"],
+                                            rep["grad_conv"][0]]})
         bf16_noise = _par_compare(refs["bfloat16"], refs["float32"])
         bars = dict(PAR_BARS)
         bars["bfloat16"] = dict(bars["bfloat16"],
@@ -2941,6 +3132,7 @@ def phase_parallel(state):
             f"{bf16_noise['grad_all']:.3e} from float32's over the whole "
             f"model, losses {bf16_noise['losses']} against "
             f"{refs['float32'][0]} [{card}]")
+        note(state, bf16_from_f32=bf16_noise["grad_all"])
         ref_path = os.path.join(root, "ref.pt")
         torch.save(refs, ref_path)
         t0 = time.perf_counter()
@@ -2978,8 +3170,18 @@ def phase_parallel(state):
                 f"{[(res[i]['k2'], res[i]['k3']) for res in ranks]}; "
                 f"{lay['ms']:.1f} ms a step against one process's "
                 f"{one_ms[lay['dtype']]:.1f} [{card}]")
+            note(state, **{f"{lay['dtype']}_{lay['layout'][0]}"
+                           f"{lay['layout'][1]}": dict(
+                               loss=lay["loss"], grad_all=lay["grad_all"],
+                               grad_conv=lay["grad_conv"][0],
+                               grad_head=lay["grad_head"][0],
+                               stats=lay["stats"], flip=lay["flip"],
+                               enc_share=share, ms=lay["ms"],
+                               one_ms=one_ms[lay["dtype"]])})
         log(f"parallel train: both dtypes and layouts in {t_ranks:.1f} s "
             "(spawn, builds and steps)")
+
+        _par_apart(state, root, refs["float32"])
 
         # 3. data-parallel serving, two ranks
         wire = _flagship_wire(state)[0]
@@ -3010,6 +3212,9 @@ def phase_parallel(state):
             f"engine's (worst {rows.max():.1f} px; bar "
             f"{PAR_FLAGSHIP_ROWS}), {res['ms']:.1f} ms a batch of "
             f"{FLAGSHIP_B}; K1 launches {res['k1']} [{card}]")
+        note(state, **{f"serving_rank{r}": dict(
+            golden_px=[dpx, gpx], rows=same, worst_px=float(rows.max()),
+            ms=res["ms"])})
         check(dpx < 2.0 and gpx < 2.0, f"rank {r}: golden off by {dpx}, "
               f"{gpx} px")
         check(same >= PAR_FLAGSHIP_ROWS, f"rank {r}: {same} flagship rows")
@@ -3034,6 +3239,223 @@ def phase_parallel(state):
             share = lay["enc_local"] / lay["enc_whole"]
             check(abs(share - 0.5) < 0.01, f"encoder share {share}")
 
+
+
+# The parity phase: the weights-parity harness on the card (golden f32 with
+# TF32 off against the CPU, within PARITY_TOL of every metric; then
+# resnet50_rnn at full width through --need_preprocess)
+PARITY_N = 16
+PARITY_TOL = 0.01
+PARITY_TOOL = os.path.join(REPO, "horizonnet_tpu_torch", "tools",
+                           "parity_eval.py")
+
+
+def _parity_tool():
+    """horizonnet_tpu_torch/tools/parity_eval.py as a module (a script, not
+    a package module), for its eval functions."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("parity_eval", PARITY_TOOL)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _parity_counted(args, env):
+    """``python3 horizonnet_tpu_torch/tools/parity_eval.py args`` in a fresh
+    process that reports at exit K1's launch count, from 0, and the
+    seconds of its stages: VP alignment (the preprocess CLI's main),
+    inference (the inference CLI's main, model load included) and what
+    follows (the eval and the verdict). Returns (stages and K1 launches,
+    stdout); the exit code must be 0."""
+    code = "\n".join([
+        "import json, runpy, sys, time",
+        "from horizonnet_tpu_torch.cli import inference, preprocess",
+        "from horizonnet_tpu_torch.ops import cuda_lstm",
+        "rep = {'pre_s': 0.0, 'infer_s': 0.0}",
+        "def timed(mod, key):",
+        "    main = mod.main",
+        "    def run(argv):",
+        "        t0 = time.perf_counter()",
+        "        try:",
+        "            return main(argv)",
+        "        finally:",
+        "            rep['t_end'] = time.perf_counter()",
+        "            rep[key] = rep['t_end'] - t0",
+        "    mod.main = run",
+        "timed(preprocess, 'pre_s')",
+        "timed(inference, 'infer_s')",
+        "try:",
+        f"    runpy.run_path({PARITY_TOOL!r}, run_name='__main__')",
+        "finally:",
+        "    t_end = rep.pop('t_end', time.perf_counter())",
+        "    rep.update(k1=cuda_lstm.launches, "
+        "eval_s=time.perf_counter() - t_end)",
+        "    print('PARITY_RUN ' + json.dumps(rep), file=sys.stderr)"])
+    proc = subprocess.run([sys.executable, "-c", code, *args], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    check(proc.returncode == 0, f"parity_eval {args[-6:]} exited "
+          f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    found = [json.loads(line.split(" ", 1)[1])
+             for line in proc.stderr.splitlines()
+             if line.startswith("PARITY_RUN ")]
+    check(len(found) == 1, "parity_eval did not report its stages")
+    return found[0], proc.stdout
+
+
+def phase_parity(state):
+    """tools/parity_eval.py on the card: the golden against the CPU in both
+    modes, both verdicts, then resnet50_rnn at full width from a reference
+    .pth through VP alignment, bf16 and the device fit."""
+    import contextlib
+    import io
+
+    import numpy as np
+    from horizonnet_tpu_torch.models import build_model
+    from horizonnet_tpu_torch.preprocess import host_resample
+    from horizonnet_tpu_torch.utils.image import write_png
+
+    card = state["card"]
+    tool = _parity_tool()
+    img, _ = _golden_inputs()
+    gt = np.loadtxt(os.path.join(GOLDEN, "val_room_cor.txt"))
+    box = _plan_box_cuboid(gt)
+    gt_dir = {"general": "label_cor", "cuboid": "label_box"}
+    rng = np.random.default_rng(1)
+    rolls = [0] + [int(r) for r in rng.integers(1, 1024, PARITY_N - 1)]
+    ckpt = os.path.join(GOLDEN, "resnet18_rnn_synth.ckpt")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as d:
+        def sub(*parts):
+            return os.path.join(d, *parts)
+
+        def write_set(name, panos, labels):
+            """panos [(pano, roll)] as name/img/pNN.png, and each label of
+            ``labels`` ({dir: corners}) rolled the same way into
+            name/dir/pNN.txt."""
+            for part in ("img", *labels):
+                os.makedirs(sub(name, part))
+            for i, (pano, r) in enumerate(panos):
+                write_png(sub(name, "img", f"p{i:02d}.png"),
+                          np.roll(pano, r, axis=1))
+                for part, cor in labels.items():
+                    np.savetxt(sub(name, part, f"p{i:02d}.txt"),
+                               _rolled_cor(cor, r), fmt="%.4f")
+
+        def metrics_of(mode, gt_glob, out):
+            evaluate = (tool.eval_cuboid_metrics if mode == "cuboid"
+                        else tool.eval_general_metrics)
+            with contextlib.redirect_stderr(io.StringIO()):
+                return evaluate(gt_glob, os.path.join(out, "dt", "*.json"),
+                                1024, 512)
+
+        # 1. the golden, f32 with TF32 off, on the card and on the CPU
+        write_set("golden", [(img, r) for r in rolls],
+                  {"label_cor": gt, "label_box": box})
+        golden_env = dict(env, NVIDIA_TF32_OVERRIDE="0")
+        launches, got, walls = 0, {}, {}
+
+        def golden_args(mode, device, out, *extra):
+            return ["--pth", ckpt, "--img_glob", sub("golden", "img", "*"),
+                    "--gt_glob", sub("golden", gt_dir[mode], "*.txt"),
+                    "--dataset", "custom", "--mode", mode, "--output_dir",
+                    out, "--device", device, *extra]
+
+        for mode in ("general", "cuboid"):
+            for device in ("cuda", "cpu"):
+                out = sub(f"golden_{mode}_{device}")
+                t0 = time.perf_counter()
+                rep, _ = _parity_counted(golden_args(mode, device, out),
+                                         golden_env)
+                walls[mode, device] = time.perf_counter() - t0
+                check((rep["k1"] > 0) == (device == "cuda"),
+                      f"parity golden {mode} on {device}: K1 launches "
+                      f"{rep['k1']}")
+                launches += rep["k1"]
+                m, n = metrics_of(mode, sub("golden", gt_dir[mode], "*.txt"),
+                                  out)
+                check(n == PARITY_N, f"parity golden {mode} on {device}: "
+                      f"{n} pairs, not {PARITY_N}")
+                check(all(np.isfinite(v) for v in m.values()),
+                      f"parity golden {mode} on {device}: {m}")
+                got[mode, device] = m
+            card_m, cpu_m = got[mode, "cuda"], got[mode, "cpu"]
+            diff = max(abs(card_m[k] - cpu_m[k]) for k in cpu_m)
+            log(f"parity golden {mode} (resnet18_rnn ckpt, f32, TF32 off, "
+                f"{PARITY_N} rolled copies of val_room, host postprocess): "
+                f"card {json.dumps(_compact(card_m))}, CPU "
+                f"{json.dumps(_compact(cpu_m))}; largest difference "
+                f"{diff:.6f} (bar {PARITY_TOL}); wall card "
+                f"{walls[mode, 'cuda']:.1f} s, CPU "
+                f"{walls[mode, 'cpu']:.1f} s (process start included) "
+                f"[{card}]")
+            check(diff <= PARITY_TOL, f"parity golden {mode}: the card's "
+                  f"metrics {card_m} lie {diff} from the CPU's {cpu_m}")
+            note(state, **{f"golden_{mode}_card": card_m,
+                           f"golden_{mode}_cpu_diff": diff})
+
+        # both verdicts, in this process on the card: the measured value
+        # passes, the measured value + 50 fails
+        want3d = got["general", "cuda"]["3DIoU"]
+        for shift, rc in ((0.0, 0), (50.0, 2)):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(io.StringIO()):
+                r = tool.main(golden_args(
+                    "general", "cuda", sub(f"verdict_{rc}"), "--expect",
+                    f"3DIoU={want3d + shift:.4f}"))
+            check(r == rc, f"parity verdict at 3DIoU {want3d + shift}: exit "
+                  f"{r}, not {rc}")
+            check(("PARITY OK" in out.getvalue()) == (rc == 0),
+                  f"parity verdict at 3DIoU {want3d + shift}: "
+                  f"{out.getvalue()[-500:]}")
+        log(f"parity verdicts on the card: --expect 3DIoU={want3d:.4f} exit "
+            f"0 (PARITY OK), 3DIoU={want3d + 50:.4f} exit 2")
+
+        # 2. full width: resnet50_rnn, random weights from seed 0 as a
+        # reference .pth, raw panos (val_room turned by a known R, rolled)
+        # with cuboid labels through --need_preprocess, bf16, the device
+        # fit, batch 8
+        model = build_model("resnet50", True, device="cpu", seed=0)
+        pth = sub("resnet50_rnn.pth")
+        _reference_pth(pth, model, model.state_dict())
+        del model
+        raws = [img if yt == (0, 0) else host_resample
+                .rotate_panorama_uint8_host(img, R=_yaw_tilt(*yt))
+                for yt in PRE_ROTATIONS.values()]
+        write_set("raw", [(raws[i % len(raws)], r)
+                          for i, r in enumerate([0] * len(raws) + [
+                              int(r) for r in rng.integers(
+                                  1, 1024, PARITY_N - len(raws))])],
+                  {"label_cor": box})
+        out = sub("full")
+        rep, stdout = _parity_counted(
+            ["--pth", pth, "--root_dir", sub("raw"), "--dataset", "custom",
+             "--bf16", "--device_postproc", "--batch_size", "8",
+             "--need_preprocess", "--output_dir", out, "--device", "cuda"],
+            env)
+        n_aligned = len(os.listdir(os.path.join(out, "aligned")))
+        m, n = metrics_of("cuboid", sub("raw", "label_cor", "*.txt"), out)
+        check(rep["k1"] > 0, "parity full width: K1 was not launched")
+        check(n == n_aligned > 0 and all(np.isfinite(v) for v in m.values()),
+              f"parity full width: {n} pairs of {n_aligned} aligned, {m}")
+        launches += rep["k1"]
+        per = {k: rep[f"{k}_s"] / PARITY_N for k in ("pre", "infer", "eval")}
+        log(f"parity full width (resnet50_rnn from a reference .pth, random "
+            f"weights, bf16, --device_postproc cuboid, --batch_size 8, "
+            f"--need_preprocess on {PARITY_N} raw panos): exit 0; "
+            f"{n_aligned} aligned, {n} scored, metrics "
+            f"{json.dumps({k: round(v, 4) for k, v in m.items()})} (random "
+            f"weights: no bar); K1 launches {rep['k1']}; seconds a pano: "
+            f"alignment {per['pre']:.4f}, inference {per['infer']:.4f} "
+            f"(model load included), eval {per['eval']:.4f} [{card}]")
+        for line in stdout.strip().splitlines()[-6:]:
+            log(f"  {line}")
+        note(state, full_metrics=m, full_scored=n, full_k1=rep["k1"],
+             full_s_a_pano=per)
+    _launched(state, "bilstm_fwd", "parity", launches)
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3067,7 +3489,7 @@ def main(argv=None):
                 "plain_ms": None, "bound_ms": None, "bound_by": None,
                 "library_ms": None}
 
-    state = {"card": card_line(), "launches": {}, "kernels": {
+    kernels = {
         "bilstm_fwd": record("bilstm_fwd", "bilstm_fwd.cu",
                              "pallas_lstm.py:31"),
         "bilstm_train_fwd": record("bilstm_train_fwd", "bilstm_train.cu",
@@ -3075,7 +3497,9 @@ def main(argv=None):
         "bilstm_bwd": record("bilstm_bwd", "bilstm_train.cu",
                              "pallas_lstm.py:87"),
         "fused_bottleneck": record("fused_bottleneck", "fused_bottleneck.cu",
-                                   "pallas_block.py:58")}}
+                                   "pallas_block.py:58")}
+    state = {"card": card_line(), "launches": {}, "summary": {},
+             "kernels": kernels}
     log(state["card"])
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
@@ -3094,13 +3518,23 @@ def main(argv=None):
               "train_cli": phase_train_cli, "dynamics": phase_dynamics,
               "densenet": phase_densenet, "quant": phase_quant,
               "preprocess": phase_preprocess, "eval": phase_eval,
-              "parallel": phase_parallel}
+              "parity": phase_parity, "parallel": phase_parallel}
     for name in args.phases:
         t0 = time.perf_counter()
+        state["phase"] = name
         log(f"== phase {name}")
         phases[name](state)
-        log(f"== phase {name} ok ({time.perf_counter() - t0:.1f} s)")
+        secs = time.perf_counter() - t0
+        note(state, seconds=secs)
+        log(f"== phase {name} ok ({secs:.1f} s)")
 
+    # the summary: every phase's headline numbers, compact, after the log
+    log("== summary (ms: CUDA-event medians; rates in panos/s; each phase's "
+        "log line above has the method)")
+    log(state["card"])
+    for name, numbers in state["summary"].items():
+        log(f"summary {name} "
+            f"{json.dumps(_compact(numbers), separators=(',', ':'))}")
     log(f"launches by path (each counted from 0 just before its run; the "
         f"kernels line sums them): {json.dumps(state['launches'])}")
     log(f"whole run: {time.perf_counter() - t_run:.1f} s")
