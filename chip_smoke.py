@@ -47,12 +47,24 @@ Phases; any failed check makes the script exit non-zero:
             then bf16, whose corner drift is printed.
   flagship  resnet50_rnn at full width, bf16, random weights from seed 0,
             batch 64, dct4 wire of val_room rolled per sample, through
-            serve_stream at depth 3: finite [8, 2] corners; serving and
-            device-resident panos/s.
+            serve_stream at depth 3: finite [8, 2] corners. Two engines,
+            the captured program (InferenceEngine's default on the card)
+            and the eager one (graph=False): the captured output equal to
+            the eager one bit for bit on the three wire batches; K1
+            launched twice a batch by both (a replay counts its captured
+            launches); the host's ms in put() and in run() while batches
+            run on the card, beside one batch's device ms and what an
+            upload from pageable memory waits there (put must take under
+            a quarter of a batch); serving and device-resident panos/s of
+            both in turns; each engine's peak memory (the captured one's
+            with its graph's pool).
   fused     the flagship with fused_blocks="kernel" (K4 on the 12
             identity bottlenecks) beside the unfused flagship, same
             weights, in turns: serving and device panos/s, corner drift
-            on the first batch, K4 launches (12 per forward); then an f32
+            on the first batch, K4 launches (12 per forward); K4 under
+            capture: the fused engine's replays equal to the same
+            weights' eager program bit for bit on the three wire batches,
+            12 launches a replay; then an f32
             resnet50_rnn at B=1, 512x1024 with randomized batch norm, TF32
             off: fused and unfused bon/cor within 2e-4.
   general   the golden through InferenceEngine(postproc="general") in f32
@@ -60,7 +72,9 @@ Phases; any failed check makes the script exit non-zero:
             through the yuv420 wire (within 2 px); then the flagship's
             width in general mode (resnet50_rnn bf16 B=64 dct4,
             serve_stream depth 3, finish_general_batch on 4 workers):
-            serving and device panos/s, every result finite.
+            serving panos/s of the captured engine and the eager one in
+            turns, device panos/s of general and cuboid in turns, every
+            result finite.
   cli       python -m horizonnet_tpu_torch.cli.inference on the golden,
             cuboid and general, JSON within 2 px of golden_outputs.npz.
   host      the reference's default inference, the host postprocess
@@ -86,11 +100,19 @@ Phases; any failed check makes the script exit non-zero:
             batch 8, Adam at lr 1e-4 on the warmup-poly schedule,
             lstm_impl kernel_train: synthetic rooms (seed 0) written as a
             PNG dataset, one batch through the uint8-wire augmentation on
-            the card, then warm-up and 20 timed steps of TrainEngine on
-            that batch. Checks: every loss finite, K2 and K3 launched, the
-            loss after the steps below the first step's. Prints train
-            panos/s, ms per step, peak memory, per-stage times and the
-            profiler's top kernels.
+            the card. TrainEngine's captured step (the default on the
+            card) against its eager step (graph=False), each from the same
+            state: three steps, the third with a new generator (an epoch's
+            in the train CLI), must agree within 1e-6 relative in every
+            loss, parameter, running statistic and optimizer tensor (the
+            differing ones are named; a second eager engine shows the
+            eager step's own spread), and advance the generators alike;
+            then ms a step of both in turns (eager, graphed, graphed,
+            eager) x 3 of 5 steps. Checks: every loss finite, K2 and K3
+            launched twice a step, the loss after the steps below the
+            first step's. Prints train panos/s, peak memory of each
+            engine, per-stage times of the eager step and, for each, the
+            profiler's device-busy share and top kernels.
   train_cli python -m horizonnet_tpu_torch.cli.train on 2 synthetic
             512x1024 PNG panos with 2 more to validate on (resnet18, batch
             2, 2 epochs, --save_every 1, --lstm_impl pallas_train): both
@@ -225,6 +247,9 @@ Phases; any failed check makes the script exit non-zero:
             rank, the same on both, at least PAR_FLAGSHIP_ROWS rows within
             2 px of the one-process engine's (bf16 ties); K1 launched on
             every rank.
+
+The general, densenet and quant phases serve through captured engines
+too (the default on the card), and every launch count includes replays.
 
 After the log of the phases it prints a summary: the card's name and
 power limit, then one compact line of headline numbers a phase
@@ -908,11 +933,14 @@ def _flagship_wire(state, B=FLAGSHIP_B, n_distinct=3):
 
 
 def _flagship_engine(postproc, fused_blocks="", backbone="resnet50",
-                     quant_int8=False, batch_size=FLAGSHIP_B, mesh=None):
+                     quant_int8=False, batch_size=FLAGSHIP_B, mesh=None,
+                     graph=True):
     """resnet50_rnn (or ``backbone``), bf16, the flagship batch (or
     ``batch_size``), dct4 wire, random weights (seed 0); ``quant_int8``:
     the int8 encoder on the same float weights folded by
-    models/quant.py::quantize_state_dict; ``mesh``: data-parallel."""
+    models/quant.py::quantize_state_dict; ``mesh``: data-parallel;
+    ``graph``: InferenceEngine's (True: captured, as without a mesh by
+    default; False: the eager program)."""
     import torch
     from horizonnet_tpu_torch.inference import InferenceEngine
     from horizonnet_tpu_torch.models import build_model
@@ -927,7 +955,14 @@ def _flagship_engine(postproc, fused_blocks="", backbone="resnet50",
         model = build_model(backbone, True, quant_int8=True, **kw)
     return InferenceEngine(model, sd, batch_size=batch_size,
                            postproc=postproc, input_format="dct4",
-                           device="cuda", mesh=mesh)
+                           device="cuda", mesh=mesh, graph=graph)
+
+
+def _resident(wire):
+    """The wire batches as tensors on the card (device-resident rates)."""
+    import torch
+
+    return [torch.from_numpy(w).cuda() for w in wire]
 
 
 def _serve(eng, feed, finish, workers=1):
@@ -938,6 +973,27 @@ def _serve(eng, feed, finish, workers=1):
     results = list(serve_stream(eng, iter(feed), depth=3, finish=finish,
                                 workers=workers))
     return len(feed) * FLAGSHIP_B / (time.perf_counter() - t0), results
+
+
+def _host_call_ms(eng, wire, n=6):
+    """Host ms of one ``put`` and of one ``run`` while the device is busy:
+    two batches are queued first, then n put/run pairs; medians."""
+    import torch
+
+    torch.cuda.synchronize()
+    for w in wire[:2]:
+        eng.run(eng.put(w))
+    puts, runs = [], []
+    for i in range(n):
+        t0 = time.perf_counter()
+        up = eng.put(wire[i % len(wire)])
+        t1 = time.perf_counter()
+        eng.run(up)
+        t2 = time.perf_counter()
+        puts.append((t1 - t0) * 1e3)
+        runs.append((t2 - t1) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(puts), statistics.median(runs)
 
 
 def _device_rate(eng, xs, n_batches):
@@ -958,9 +1014,9 @@ def phase_flagship(state):
     from horizonnet_tpu_torch.ops import cuda_lstm
     from horizonnet_tpu_torch.postproc import unpack_cuboid_outputs
 
-    B, n_batches, reps = FLAGSHIP_B, 12, 3
+    B, n_batches, reps = FLAGSHIP_B, 12, 2
+    card = state["card"]
     wire = _flagship_wire(state)
-    eng = _flagship_engine("cuboid")
 
     def finish(outs):
         cid, z1 = unpack_cuboid_outputs(outs)
@@ -970,34 +1026,89 @@ def phase_flagship(state):
               "flagship result not finite")
         return cid
 
+    # the eager program and the captured one, each with its own model from
+    # the same seed; each engine's peak memory over what was allocated
+    # before it (the captured one's includes its graph's pool)
+    engs, peak = {}, {}
+    for name, graph in (("eager", False), ("graphed", True)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        engs[name] = _flagship_engine("cuboid", graph=graph)
+        t_build = time.perf_counter() - t0
+        _serve(engs[name], wire, finish)                       # warm-up
+        torch.cuda.synchronize()
+        peak[name] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        log(f"flagship {name} engine: built in {t_build:.1f} s (warm-up "
+            f"and capture included), then {len(wire)} batches; peak "
+            f"{peak[name]:.2f} GiB over the {base / 2 ** 30:.2f} GiB "
+            "before it")
+    check(engs["eager"].program is None
+          and engs["graphed"].program is not None,
+          "the flagship engine did not capture its program")
+
+    # the same numbers: the captured program against the eager one, bit
+    # for bit on the three wire batches
+    same = [bool(torch.equal(engs["graphed"](w), engs["eager"](w)))
+            for w in wire]
+    check(all(same), f"graphed flagship output differs from the eager "
+          f"program's on batches {[i for i, v in enumerate(same) if not v]}")
+
+    # K1's launches a batch, a replay's counted as the eager calls are
+    k1 = {}
+    for name, eng in engs.items():
+        cuda_lstm.launches = 0
+        eng(wire[0])
+        torch.cuda.synchronize()
+        k1[name] = cuda_lstm.launches
+    check(k1["graphed"] == k1["eager"] == 2,
+          f"K1 launches a batch: graphed {k1['graphed']}, eager "
+          f"{k1['eager']}, not 2 each")
+
+    # the host's time in put() and run() while batches run on the card,
+    # and what an upload from pageable memory (the port's put before the
+    # upload ring) waits there
+    calls = {name: _host_call_ms(eng, wire) for name, eng in engs.items()}
+    dev = torch.device("cuda")
+    engs["graphed"].run(engs["graphed"].put(wire[0]))
     t0 = time.perf_counter()
-    _serve(eng, wire, finish)
+    torch.from_numpy(wire[1]).to(dev)
+    pageable_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
-    log(f"flagship warm-up ({len(wire)} batches): "
-        f"{time.perf_counter() - t0:.1f} s")
+    batch_ms = cuda_ms(lambda: engs["graphed"].run(engs["graphed"].put(
+        wire[0])), reps=5)
+    log(f"host ms while the card runs batches (medians of 6): put "
+        f"{calls['graphed'][0]:.3f} graphed / {calls['eager'][0]:.3f} "
+        f"eager, run {calls['graphed'][1]:.3f} graphed / "
+        f"{calls['eager'][1]:.3f} eager; one batch on the card "
+        f"{batch_ms:.2f} ms (graphed, CUDA events); an upload from pageable "
+        f"memory behind a running batch {pageable_ms:.2f} ms [{card}]")
+    check(calls["graphed"][0] < 0.25 * batch_ms,
+          f"put took {calls['graphed'][0]:.2f} ms of a {batch_ms:.2f} ms "
+          "batch: it waits for the device")
 
     feed = [wire[i % len(wire)] for i in range(n_batches)]
-    serving = []
+    xs = _resident(wire)
     cuda_lstm.launches = 0
-    for _ in range(reps):
-        rate, results = _serve(eng, feed, finish)
-        check(len(results) == n_batches, "serve_stream lost batches")
-        serving.append(rate)
+    serving, device = _in_turns(engs, "eager", "graphed", feed, xs, finish,
+                                reps)
     launches = cuda_lstm.launches
+    forwards = 8 * reps * n_batches
+    check(launches == 2 * forwards, f"K1 launched {launches} times in "
+          f"{forwards} forwards of 2 recurrences")
     _launched(state, "bilstm_fwd", "flagship", launches)
-
-    xs = [eng.put(w) for w in wire]
-    device = [_device_rate(eng, xs, n_batches) for _ in range(reps)]
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"flagship resnet50_rnn bf16 B={B} dct4 cuboid: serving "
-        f"{statistics.median(serving):.1f} panos/s (median of {reps} runs "
-        f"of {n_batches} batches, depth 3; runs "
-        f"{[round(v, 1) for v in serving]}), device-resident "
-        f"{statistics.median(device):.1f} panos/s (runs "
-        f"{[round(v, 1) for v in device]}), peak memory {peak:.1f} GiB, "
-        f"K1 launches {launches} [{state['card']}]")
-    note(state, serving=statistics.median(serving),
-         device=statistics.median(device), peak_gib=peak)
+    med, dmed = _medians(serving), _medians(device)
+    log(f"flagship resnet50_rnn bf16 B={B} dct4 cuboid, eager and graphed "
+        f"in turns (eager, graphed, graphed, eager) x {reps}, runs of "
+        f"{n_batches} batches at depth 3: {_turns_line(serving, device)}; "
+        f"peak memory eager {peak['eager']:.2f}, graphed "
+        f"{peak['graphed']:.2f} GiB; K1 launches {launches} [{card}]")
+    note(state, serving=med, device=dmed, peak_gib=peak,
+         same_bits=sum(same), k1_a_batch=k1["graphed"],
+         put_ms={k: v[0] for k, v in calls.items()},
+         run_ms={k: v[1] for k, v in calls.items()},
+         batch_ms=batch_ms, pageable_put_ms=pageable_ms)
 
 
 def phase_fused(state):
@@ -1012,7 +1123,7 @@ def phase_fused(state):
     wire = _flagship_wire(state)
     engs = {"unfused": _flagship_engine("cuboid"),
             "fused": _flagship_engine("cuboid", fused_blocks="kernel")}
-    xs = [engs["fused"].put(w) for w in wire]
+    xs = _resident(wire)
 
     # one forward = 12 K4 launches; the corner drift on the first batch
     with torch.no_grad():
@@ -1031,7 +1142,25 @@ def phase_fused(state):
         f"max corner drift {drift.max():.3f} px, median "
         f"{np.median(drift):.3f} px")
     check(bool(np.isfinite(cid["fused"]).all()), "fused corners not finite")
-    note(state, drift_max_px=float(drift.max()))
+
+    # K4 under capture: the fused engine's replay against the eager
+    # program of the same weights, bit for bit on every wire batch
+    eager = _flagship_engine("cuboid", fused_blocks="kernel", graph=False)
+    check(engs["fused"].program is not None, "the fused engine did not "
+          "capture its program")
+    fused_block.launches = 0
+    same = [bool(torch.equal(engs["fused"].run(x), eager.run(x)))
+            for x in xs]
+    torch.cuda.synchronize()
+    check(fused_block.launches == 24 * len(xs), f"K4 launched "
+          f"{fused_block.launches} times in {len(xs)} replays and eager "
+          "forwards, not 12 each")
+    check(all(same), "the captured fused program differs from its eager "
+          f"run on batches {[i for i, v in enumerate(same) if not v]}")
+    log(f"fused flagship captured: {sum(same)} of {len(xs)} batches equal "
+        "to the eager program bit for bit, 12 K4 launches a replay")
+    del eager
+    note(state, drift_max_px=float(drift.max()), captured_same=sum(same))
 
     def finish(outs):
         cid, z1 = unpack_cuboid_outputs(outs)
@@ -1125,7 +1254,8 @@ def phase_general(state):
     n_batches, reps = 12, 2
     wire = _flagship_wire(state)
     engs = {"general": _flagship_engine("general"),
-            "cuboid": _flagship_engine("cuboid")}
+            "cuboid": _flagship_engine("cuboid"),
+            "general eager": _flagship_engine("general", graph=False)}
 
     def finish(outs):
         res = finish_general_batch(outs)
@@ -1135,11 +1265,15 @@ def phase_general(state):
         return res
 
     feed = [wire[i % len(wire)] for i in range(n_batches)]
-    _serve(engs["general"], wire, finish, 4)                  # warm-up
-    serving = [_serve(engs["general"], feed, finish, 4)[0]
-               for _ in range(reps)]
-    xs = [engs["general"].put(w) for w in wire]
-    device = {k: [] for k in engs}
+    # serving, the captured engine and the eager one in turns
+    for name in ("general", "general eager"):
+        _serve(engs[name], wire, finish, 4)                   # warm-up
+    serving = {"general": [], "general eager": []}
+    for name in ("general eager", "general", "general",
+                 "general eager") * reps:
+        serving[name].append(_serve(engs[name], feed, finish, 4)[0])
+    xs = _resident(wire)
+    device = {"general": [], "cuboid": []}
     for name in ("general", "cuboid", "cuboid", "general") * reps:
         device[name].append(_device_rate(engs[name], xs, n_batches))
     outs = engs["general"].run(xs[0])
@@ -1147,17 +1281,19 @@ def phase_general(state):
     finish(outs)
     t_tail = time.perf_counter() - t0
     dmed = {k: statistics.median(v) for k, v in device.items()}
+    smed = _medians(serving)
     log(f"general resnet50_rnn bf16 B=64 dct4, serve_stream depth 3 with "
-        f"finish_general_batch on 4 workers: serving "
-        f"{statistics.median(serving):.1f} panos/s (runs "
-        f"{[round(v, 1) for v in serving]}); device general "
+        f"finish_general_batch on 4 workers, eager and graphed in turns: "
+        f"serving graphed {smed['general']:.1f}, eager "
+        f"{smed['general eager']:.1f} panos/s (runs "
+        f"{[round(v, 1) for v in serving['general']]} / "
+        f"{[round(v, 1) for v in serving['general eager']]}); device general "
         f"{dmed['general']:.1f}, cuboid {dmed['cuboid']:.1f} panos/s in "
         f"turns (runs {[round(v, 1) for v in device['general']]} / "
         f"{[round(v, 1) for v in device['cuboid']]}); the host tail of one "
         f"batch (fetch + finish_general_batch, one thread) "
         f"{t_tail * 1e3:.1f} ms [{card}]")
-    note(state, serving=statistics.median(serving), device=dmed,
-         tail_ms=t_tail * 1e3)
+    note(state, serving=smed, device=dmed, tail_ms=t_tail * 1e3)
 
 
 def _reference_pth(path, model, sd, infix=True, fmt="self_describing"):
@@ -1199,6 +1335,7 @@ def phase_host(state):
                                                 net_forward, postprocess)
     from horizonnet_tpu_torch.models import build_model
     from horizonnet_tpu_torch.ops import cuda_lstm
+    from horizonnet_tpu_torch.program import WARMUP
     from horizonnet_tpu_torch.postproc import unpack_cuboid_outputs
     from horizonnet_tpu_torch.train.checkpoint import load_trained_model
     from horizonnet_tpu_torch.viewer.visualize import visualize_a_data
@@ -1293,7 +1430,9 @@ def phase_host(state):
         np.float32) / 255.0
     inference(model, sd, x[:1])                              # warm-up
     cuda_lstm.launches = 0
-    forwards = 0
+    # the first call at B=64 builds the cached engine, whose warm-up runs
+    # the forward eagerly before the capture
+    forwards = WARMUP
     results = {}
     for mode, kw in (("cuboid", {"force_cuboid": True}), ("general", {})):
         err = io.StringIO()
@@ -1425,9 +1564,9 @@ def phase_dynamics(state):
     # held-out rooms as the JAX test scores them, one pano a forward
     val_rng = np.random.default_rng(seed + 1)
     rooms = [synth_room(val_rng, H=H, W=W) for _ in range(n_val)]
-    cuda_lstm.launches = 0
     val_engine = InferenceEngine(model, model.state_dict(), batch_size=1,
                                  H=H, W=W, device=dev)
+    cuda_lstm.launches = 0
     ev = new_general_losses()
     for img, gt_cor in rooms:
         bon, cor = (t.cpu().numpy() for t in
@@ -1530,7 +1669,7 @@ def phase_train(state):
     from horizonnet_tpu_torch.train.step import (create_train_state,
                                                  loss_terms, make_optimizer)
 
-    B, H, W, n_warm, n_steps, reps = TRAIN_B, 512, 1024, 3, 5, 4
+    B, H, W, n_steps, reps = TRAIN_B, 512, 1024, 5, 3
     dev = torch.device("cuda")
     card = state["card"]
     x, y_bon, y_cor, raw, t_batch = _train_batch(state)
@@ -1545,53 +1684,99 @@ def phase_train(state):
         f"(uint8 wire, CUDA events) [{card}]")
     note(state, batch_s=t_batch, augment_ms=ms_aug)
 
-    model = build_model("resnet50", True, device=dev, dtype=torch.bfloat16,
-                        lstm_impl="kernel_train", param_dtype=torch.float32,
-                        seed=0)
-    st = create_train_state(model, make_optimizer(
-        "Adam", warmup_poly_schedule(1e-4, 1000)))
-    eng = TrainEngine(model, st, B, H, W, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    losses = []
-    t0 = time.perf_counter()
-    for _ in range(n_warm):
-        losses.append(eng.step(x, y_bon, y_cor, gen)["total"])
-    torch.cuda.synchronize()
-    log(f"train warm-up ({n_warm} steps): {time.perf_counter() - t0:.1f} s")
+    def make(graph):
+        model = build_model("resnet50", True, device=dev,
+                            dtype=torch.bfloat16, lstm_impl="kernel_train",
+                            param_dtype=torch.float32, seed=0)
+        st = create_train_state(model, make_optimizer(
+            "Adam", warmup_poly_schedule(1e-4, 1000)))
+        return TrainEngine(model, st, B, H, W, device=dev, graph=graph)
 
+    # the eager step and the captured one from the same state: three steps
+    # each, the third with a new generator (as the train CLI makes one an
+    # epoch); each engine's peak memory over what was allocated before it
+    engs, peak, first3, gens = {}, {}, {}, {}
+    for name, graph in (("eager", False), ("eager2", False),
+                        ("graphed", True)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = engs[name] = make(graph)
+        t_build = time.perf_counter() - t0
+        gens[name] = [torch.Generator(device=dev).manual_seed(s)
+                      for s in (0, 0, 1)]
+        first3[name] = [eng.step(x, y_bon, y_cor, g) for g in gens[name]]
+        torch.cuda.synchronize()
+        peak[name] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        log(f"train {name} engine: built in {t_build:.1f} s (warm-up and "
+            f"capture included); build and 3 steps peak {peak[name]:.2f} "
+            f"GiB over the {base / 2 ** 30:.2f} GiB before it")
+    check(engs["eager"].program is None
+          and engs["graphed"].program is not None,
+          "the train engine did not capture its step")
+    gen_same = all(torch.equal(a.get_state(), b.get_state())
+                   for a, b in zip(gens["graphed"], gens["eager"]))
+    check(gen_same, "the captured step did not advance the generators as "
+          "the eager step does")
+    spread = {}
+    for other in ("graphed", "eager2"):
+        diffs = _state_diffs(engs[other], engs["eager"], first3, other)
+        differ = {k: v for k, v in diffs.items() if v > 0}
+        spread[other] = diffs
+        log(f"3 {other} train steps against 3 eager ones (losses, "
+            f"parameters, running statistics, Adam's moments and count: "
+            f"{len(diffs)} tensors): {len(diffs) - len(differ)} equal bit "
+            f"for bit, largest relative difference "
+            f"{max(diffs.values()):.3e}; differing: "
+            f"{sorted(differ, key=differ.get, reverse=True)[:8]}")
+    worst = max(spread["graphed"].values())
+    n_same = sum(v == 0 for v in spread["graphed"].values())
+    del engs["eager2"]
+    check(worst <= 1e-6, f"graphed train steps differ from eager ones by "
+          f"{worst:.3e} relative (bar 1e-6)")
+
+    # ms a step, in turns; the captured engine is the main path
     clt.fwd_launches = clt.bwd_launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    rates, step_ms = [], []
-    for _ in range(reps):
+    losses, step_ms = [], {k: [] for k in engs}
+    gen = {k: torch.Generator(device=dev).manual_seed(2) for k in engs}
+    for name in ("eager", "graphed", "graphed", "eager") * reps:
         t0 = time.perf_counter()
         for _ in range(n_steps):
-            losses.append(eng.step(x, y_bon, y_cor, gen)["total"])
+            m = engs[name].step(x, y_bon, y_cor, gen[name])
+            if name == "graphed":
+                losses.append(m["total"])
         torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        rates.append(n_steps * B / dt)
-        step_ms.append(dt / n_steps * 1e3)
+        step_ms[name].append((time.perf_counter() - t0) / n_steps * 1e3)
     k2, k3 = clt.fwd_launches, clt.bwd_launches
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    losses = [v.item() for v in losses]
+    steps = 4 * reps * n_steps
+    losses = [m["total"].item() for m in first3["graphed"]] + [
+        v.item() for v in losses]
     check(all(np.isfinite(losses)), f"train losses not finite: {losses}")
-    check(k2 > 0 and k3 > 0, f"K2/K3 not launched on the train path: "
-          f"{k2}, {k3}")
+    check(k2 == k3 == 2 * steps, f"K2/K3 launched {k2}/{k3} times in "
+          f"{steps} steps of 2 recurrences")
     first, last = losses[0], float(np.mean(losses[-3:]))
     check(last < first, f"loss on the repeated batch did not fall: "
           f"{first} -> {last}")
     _launched(state, "bilstm_train_fwd", "train", k2)
     _launched(state, "bilstm_bwd", "train", k3)
-    log(f"train resnet50_rnn bf16 (f32 params) B={B} {H}x{W} kernel_train: "
-        f"{statistics.median(rates):.2f} panos/s (median of {reps} runs of "
-        f"{n_steps} steps; runs {[round(v, 2) for v in rates]}), "
-        f"{statistics.median(step_ms):.2f} ms/step, peak memory {peak:.2f} "
-        f"GiB, K2 launches {k2}, K3 launches {k3}; loss {first:.4f} -> "
-        f"{last:.4f} over {len(losses)} steps on one batch [{card}]")
-    note(state, panos_s=statistics.median(rates), runs=rates,
-         step_ms=statistics.median(step_ms), peak_gib=peak,
+    med = {k: statistics.median(v) for k, v in step_ms.items()}
+    log(f"train resnet50_rnn bf16 (f32 params) B={B} {H}x{W} kernel_train, "
+        f"in turns (eager, graphed, graphed, eager) x {reps} of {n_steps} "
+        f"steps: {med['eager']:.2f} ms/step eager, {med['graphed']:.2f} "
+        f"graphed (runs {[round(v, 2) for v in step_ms['eager']]} / "
+        f"{[round(v, 2) for v in step_ms['graphed']]}); "
+        f"{B * 1e3 / med['graphed']:.2f} panos/s graphed; peak memory eager "
+        f"{peak['eager']:.2f}, graphed {peak['graphed']:.2f} GiB; K2 "
+        f"launches {k2}, K3 launches {k3}; loss {first:.4f} -> {last:.4f} "
+        f"over {len(losses)} graphed steps on one batch [{card}]")
+    note(state, step_ms=med, panos_s=B * 1e3 / med["graphed"],
+         peak_gib=peak, bits_equal=n_same, tensors=len(spread["graphed"]),
+         worst_rel=worst, eager_spread=max(spread["eager2"].values()),
          loss=[first, last])
 
-    # where the time goes: CUDA events around the parts of one step
+    # where the time goes: CUDA events around the parts of one eager step
+    st, model = engs["eager"].state, engs["eager"].model
     xs = x.permute(0, 3, 1, 2)
     yb = torch.from_numpy(y_bon).to(dev)
     yc = torch.from_numpy(y_cor).to(dev)
@@ -1601,7 +1786,7 @@ def phase_train(state):
         for q in model.parameters():
             q.grad = None
         ev[0].record()
-        bon, cor = model(xs, gen)
+        bon, cor = model(xs, gen["eager"])
         b, c = loss_terms(bon, cor, yb, yc)
         ev[1].record()
         (b + c).backward()
@@ -1612,36 +1797,68 @@ def phase_train(state):
         return [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
 
     parts = [staged() for _ in range(5)]
-    med = [statistics.median(col) for col in zip(*parts)]
-    log(f"train step stages (CUDA events, median of 5): forward + loss "
-        f"{med[0]:.2f} ms, backward {med[1]:.2f} ms, optimizer "
-        f"{med[2]:.2f} ms [{card}]")
-    note(state, stages_ms=med)
+    stages = [statistics.median(col) for col in zip(*parts)]
+    log(f"eager train step stages (CUDA events, median of 5): forward + "
+        f"loss {stages[0]:.2f} ms, backward {stages[1]:.2f} ms, optimizer "
+        f"{stages[2]:.2f} ms [{card}]")
+    note(state, stages_ms=stages)
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(3):
-            eng.step(x, y_bon, y_cor, gen)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / 3
+    for name in ("graphed", "eager"):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(3):
+                engs[name].step(x, y_bon, y_cor, gen[name])
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / 3
+        # kernels only (CPU operators carry their kernels' time too)
+        rows = [(e.self_device_time_total / 1e3 / 3, e.key)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        rows.sort(reverse=True)
+        busy = sum(t for t, _ in rows)
+        log(f"profiler, {name} step: device busy {busy:.2f} ms of "
+            f"{wall:.2f} ms wall (idle share "
+            f"{100 * (1 - busy / wall):.1f} %); top kernels:")
+        for t, key in rows[:8]:
+            log(f"  {t:8.3f} ms  {100 * t / max(busy, 1e-9):5.1f} %  "
+                f"{key[:90]}")
+        note(state, **{f"{name}_busy_ms": busy, f"{name}_wall_ms": wall})
+        if name == "graphed":
+            note(state, top_kernels=[[t, key[:40]] for t, key in rows[:5]])
 
-    # kernels only (CPU operators carry their kernels' time too)
-    rows = [(e.self_device_time_total / 1e3 / 3, e.key)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    rows.sort(reverse=True)
-    busy = sum(t for t, _ in rows)
-    log(f"profiler, per step: device busy {busy:.2f} ms of {wall:.2f} ms "
-        f"wall (idle share {100 * (1 - busy / wall):.1f} %); top kernels:")
-    for t, key in rows[:12]:
-        log(f"  {t:8.3f} ms  {100 * t / busy:5.1f} %  {key[:90]}")
-    note(state, profiled_busy_ms=busy, profiled_wall_ms=wall,
-         top_kernels=[[t, key[:40]] for t, key in rows[:5]])
+
+def _state_diffs(a, b, losses, name):
+    """{name: max |a - b| / max |b|} over two TrainEngines' parameters,
+    buffers, optimizer state and the losses {engine name: [metrics]} of
+    their steps (engine ``name`` against 'eager'); 0 where equal bit for
+    bit."""
+    import torch
+
+    def rel(x, y):
+        if torch.equal(x, y):
+            return 0.0
+        x, y = x.double(), y.double()
+        return ((x - y).abs().max() / y.abs().max().clamp(min=1e-30)).item()
+
+    out = {}
+    for kind, ta, tb in (
+            ("param", dict(a.model.named_parameters()),
+             dict(b.model.named_parameters())),
+            ("buffer", dict(a.model.named_buffers()),
+             dict(b.model.named_buffers())),
+            ("opt", dict(enumerate(a.state.opt.state_tensors())),
+             dict(enumerate(b.state.opt.state_tensors())))):
+        for k in ta:
+            out[f"{kind}:{k}"] = rel(ta[k].detach(), tb[k].detach())
+    for i, (ma, mb) in enumerate(zip(losses[name], losses["eager"])):
+        for k in ma:
+            out[f"loss{i}:{k}"] = rel(ma[k], mb[k])
+    return out
 
 
 def phase_train_cli(state):
@@ -1836,7 +2053,7 @@ def phase_densenet(state):
     wire = _flagship_wire(state)
     engs = {"densenet121": _flagship_engine("cuboid", backbone="densenet121"),
             "resnet50": _flagship_engine("cuboid")}
-    xs = [engs["resnet50"].put(w) for w in wire]
+    xs = _resident(wire)
 
     def finish(outs):
         cid, z1 = unpack_cuboid_outputs(outs)
@@ -1956,7 +2173,7 @@ def phase_quant(state):
     wire = _flagship_wire(state)
     engs = {"int8": _flagship_engine("cuboid", quant_int8=True),
             "bf16": _flagship_engine("cuboid")}
-    xs = [engs["bf16"].put(w) for w in wire]
+    xs = _resident(wire)
 
     def finish(outs):
         cid, z1 = unpack_cuboid_outputs(outs)
@@ -2826,7 +3043,9 @@ def _par_train_setup(dtype, mesh=None):
     compute on float32 parameters, K2/K3, Adam at PAR_LR, random weights
     from seed 0, a global batch of TRAIN_B from numpy seed 0 and the
     dropout generator seeded 0 (on every rank): (engine, global batch,
-    generator)."""
+    generator). The engine steps eagerly, with a mesh or without: the
+    one-process reference is the program the layouts run (its batch norms
+    may be given a process group after it is built)."""
     import numpy as np
     import torch
     from horizonnet_tpu_torch.models import build_model
@@ -2841,7 +3060,8 @@ def _par_train_setup(dtype, mesh=None):
                         seed=0)
     st = create_train_state(model, make_optimizer(
         "Adam", warmup_poly_schedule(PAR_LR, 1000)))
-    eng = TrainEngine(model, st, B, H, W, device="cuda", mesh=mesh)
+    eng = TrainEngine(model, st, B, H, W, device="cuda", mesh=mesh,
+                      graph=False)
     rng = np.random.default_rng(0)
     batch = (rng.uniform(0, 1, (B, H, W, 3)).astype(np.float32),
              rng.normal(0, 0.5, (B, 2, W)).astype(np.float32),

@@ -30,7 +30,9 @@ JAX. ``--profile_dir`` runs the serving under torch.profiler (the CUDA
 activity on a CUDA device only) and writes one Chrome trace,
 ``*.pt.trace.json``, into the directory, with the JAX CLI's spans:
 serve/ingest, serve/forward+postproc (host path) and serve/general_finish
-(the general tail on serve_stream's worker threads).
+(the general tail on serve_stream's worker threads). On a CUDA device
+every engine, the host path's included, captures its program once as a
+CUDA graph and replays it a batch (inference.py::InferenceEngine).
 """
 
 import argparse
@@ -167,6 +169,11 @@ def _serve(paths, args, model, state_dict, device):
             print(k, flush=True)
 
     if not use_device_pp:
+        # on the card each batch shape costs an engine's warm-up and
+        # capture: after full chunks, the tail pads to --batch_size and
+        # reuses their engine
+        pad_to = (args.batch_size if device.type == "cuda" and len(chunks) > 1
+                  else None)
         for chunk in chunks:
             with trace_annotation("serve/ingest"):
                 x = np.stack([load_pano(p) for p in chunk])
@@ -175,7 +182,8 @@ def _serve(paths, args, model, state_dict, device):
                 results = inference(
                     model, state_dict, x, flip=args.flip, rotate=args.rotate,
                     visualize=args.visualize, force_cuboid=args.force_cuboid,
-                    force_raw=args.force_raw, min_v=args.min_v, r=args.r)
+                    force_raw=args.force_raw, min_v=args.min_v, r=args.r,
+                    batch_size=pad_to)
             write_results(chunk, results)
         return
 

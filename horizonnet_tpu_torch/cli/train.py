@@ -16,7 +16,10 @@ losses and the true 2D/3D IoU, rmse and delta_1 of the raw-polygon
 postprocess), ``checkpoint.ckpt`` with the best 3DIoU (and
 ``best_model_<epoch>.ckpt`` when it improves), which --resume reads, and
 model checkpoints every --save_every epochs. ``--valid_root_dir ''``
-trains without validation, and then writes no checkpoint.ckpt.
+trains without validation, and then writes no checkpoint.ckpt. On one
+card the train step and the validation forward each run as a CUDA graph
+captured once (train/engine.py, inference.py); the epoch's new dropout
+generator carries into the captured step.
 
 ``--lstm_impl``: ``pallas_train`` runs the CUDA pair K2/K3
 (csrc/bilstm_train.cu) in training and K1 in the validation forward (the

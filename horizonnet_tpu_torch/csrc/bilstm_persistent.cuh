@@ -14,6 +14,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "smem_attr.cuh"
+
 namespace bilstm {
 
 constexpr int kUnits = 8;      // hidden units per CTA
@@ -378,12 +380,14 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // A cooperative launch of (grid_x, D) CTAs of kThreads: refused, and the
-// error returned, unless the card can hold them all at once.
+// error returned, unless the card can hold them all at once. The launch and
+// the caller's cudaMemsetAsync of the flags are stream operations that a
+// CUDA graph captures as they are; the shared memory attribute is set once
+// per kernel (smem_attr.cuh), outside any capture.
 template <typename Kernel>
 int launch(Kernel kernel, size_t smem, void** args, int grid_x, int D,
            cudaStream_t s) {
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t e = smem_attr::ensure((const void*)kernel, smem);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaLaunchCooperativeKernel((const void*)kernel,
                                           dim3(grid_x, D), dim3(kThreads),

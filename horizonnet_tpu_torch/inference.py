@@ -2,10 +2,13 @@
 
 Counterpart of horizonnet_tpu/inference.py (reference inference.py:
 21-141). One ``InferenceEngine`` serves one fixed config (batch, H, W,
-TTA, wire format, postproc) on one device: ``put`` uploads a host batch,
-``run`` queues decode, forward and the fused fit on the device and
-returns device tensors without waiting, so the host can prepare the next
-batch while the device works; ``serve_stream`` pipelines it.
+TTA, wire format, postproc) on one device, as the JAX engine's one
+compiled program does: on a CUDA device it captures decode, forward and
+the fused fit once as a CUDA graph (program.py). ``put`` starts the
+upload of a host batch (pinned staging, a copy stream) and returns
+without waiting for the device; ``run`` queues the program on an upload
+and returns device tensors without waiting, so the host prepares the
+next batch while the device works; ``serve_stream`` pipelines the two.
 
 The reference-compatible path is ``inference``: the forward on the
 device through a cached engine (``net_forward``), then the host
@@ -14,6 +17,7 @@ for function (the general-layout fit always finishes on the host).
 """
 
 import sys
+import threading
 from collections import OrderedDict
 
 import numpy as np
@@ -30,6 +34,7 @@ from .postproc.device import (pack_cuboid_outputs, pack_general_outputs,
                               postprocess_cuboid_batch,
                               postprocess_general_batch)
 from .postproc.manhattan import gen_ww
+from .program import CapturedProgram, Upload, UploadRing, engine_device
 
 INPUT_FORMATS = ("float", "uint8", "yuv420", "dct", "dct4")
 
@@ -86,12 +91,22 @@ class InferenceEngine:
     and fits its own rows (batch_size / n_data of them), and the outputs
     are gathered over the data group, so every rank returns the global
     batch's result. The weights are whole on every rank.
+
+    ``graph``: on a CUDA device without a mesh (the default, True) the
+    program is captured once here, after a warm-up, and every ``run``
+    replays it (program.py::CapturedProgram); a capture that fails raises.
+    ``graph=False`` runs the same program eagerly, as the CPU and a mesh
+    always do. The capture holds the parameters' addresses: weights change
+    only by ``update_variables``, which copies into them.
     """
+
+    #: upload slots: serve_stream's default depth of 3 in flight, plus one
+    UPLOAD_SLOTS = 4
 
     def __init__(self, model, state_dict, batch_size=1, H=512, W=1024,
                  flip=False, rotate=(), postproc=None, input_format="float",
                  dct_luma_m=None, dct_chroma_m=None, dct_quality=None, *,
-                 device, mesh=None):
+                 device, mesh=None, graph=True):
         if postproc not in (None, "cuboid", "general"):
             raise ValueError(f"unknown postproc mode {postproc!r}")
         if input_format not in INPUT_FORMATS:
@@ -100,7 +115,7 @@ class InferenceEngine:
             raise ValueError(f"batch of {batch_size} does not split over "
                              f"{mesh.n_data} data ranks")
         self.mesh = mesh
-        self.device = resolve_device(device)
+        self.device = engine_device(resolve_device(device))
         self.model = model.to(self.device).eval()
         self.batch_size = batch_size
         self.H, self.W = H, W
@@ -126,21 +141,34 @@ class InferenceEngine:
             self._in = (np.int8, _dct.dct4_wire_shape(batch_size, H, W,
                                                       *wire))
         self.update_variables(state_dict)
+        dtype, shape = self._in
+        rows = (batch_size if mesh is None else batch_size // mesh.n_data,)
+        tdtype = torch.from_numpy(np.zeros(0, dtype)).dtype
+        self._ring = UploadRing(rows + shape[1:], tdtype, self.device,
+                                self.UPLOAD_SLOTS)
+        self.program = None
+        if graph and self.device.type == "cuda" and mesh is None:
+            self._static = torch.zeros(self._ring.shape, dtype=tdtype,
+                                       device=self.device)
+            self.program = CapturedProgram(
+                lambda: self._program(self._static), self.device)
 
     def update_variables(self, state_dict):
-        """Swap in new weights without rebuilding the engine."""
+        """Swap in new weights without rebuilding the engine: copied into
+        the parameters in place, so a captured program reads them."""
         self.model.load_state_dict(state_dict)
 
     def put(self, x):
-        """Upload a host batch in the engine's wire format (under a mesh,
-        this rank's rows of it)."""
+        """Start the upload of a host batch in the engine's wire format
+        (under a mesh, this rank's rows of it) -> an Upload for ``run``.
+        Returns without waiting for the device."""
         dtype, shape = self._in
         x = np.asarray(x, dtype)
         if x.shape != shape:
             raise ValueError(f"batch shape {x.shape} != engine's {shape}")
         if self.mesh is not None:
             x, = shard_batch(self.mesh, (x,))
-        return torch.from_numpy(x).to(self.device)
+        return self._ring.put(x)
 
     def _decode(self, x):
         """Wire tensor -> float RGB [B, 3, H, W] (a channels-last view)."""
@@ -156,12 +184,36 @@ class InferenceEngine:
                        self.dct_quality)
         return x.permute(0, 3, 1, 2)
 
+    def run(self, x):
+        """Queue the whole program on a batch: an Upload from ``put``, or a
+        tensor of the wire's shape already on the device. Returns device
+        tensors without waiting for them; a captured program's outputs are
+        copies, which the next run leaves alone."""
+        up = x if isinstance(x, Upload) else None
+        if up is not None:
+            x = self._ring.take(up)
+        elif tuple(x.shape) != self._ring.shape \
+                or x.dtype != self._ring.dtype:
+            raise ValueError(f"batch {tuple(x.shape)} {x.dtype} != engine's "
+                             f"{self._ring.shape} {self._ring.dtype}")
+        try:
+            if self.program is None:
+                outs = self._program(x)
+            else:
+                self._static.copy_(x)
+        finally:
+            if up is not None:
+                self._ring.release(up)
+        if self.program is not None:
+            outs = tuple(o.clone() for o in self.program.replay())
+        return outs[0] if self.postproc else outs
+
     @torch.no_grad()
-    def run(self, x_dev):
-        """Queue the whole program on an uploaded batch; returns device
-        tensors without waiting for them. The model runs in eval mode,
-        also when a trainer that shares it (the train CLI's validation)
-        left it in train mode."""
+    def _program(self, x_dev):
+        """Decode, TTA forward and fit of one uploaded batch -> a tuple of
+        device tensors. The model runs in eval mode, also when a trainer
+        that shares it (the train CLI's validation) left it in train
+        mode."""
         self.model.eval()
         bon, cor = tta_forward(self.model, self._decode(x_dev), self.flip,
                                self.rotate)
@@ -175,7 +227,7 @@ class InferenceEngine:
             outs = (bon, cor)
         if self.mesh is not None:
             outs = tuple(self._gather_rows(o) for o in outs)
-        return outs[0] if self.postproc else outs
+        return outs
 
     def _gather_rows(self, t):
         """Every data rank's rows of ``t``, in rank order."""
@@ -193,12 +245,17 @@ def serve_stream(engine, batches, depth=3, finish=None, workers=1):
     keeping up to ``depth`` batches in flight.
 
     ``batches`` is consumed lazily, so the caller's ingest of later
-    batches overlaps the device work of earlier ones. Without ``finish``
-    the yielded outputs are the engine's device tensors. With
-    ``finish(outs) -> result`` each output goes to a pool of ``workers``
-    threads, whose device-to-host fetch and numpy tail overlap the main
-    thread's uploads; results still come in input order, and an
-    exception in the tail re-raises at the yield.
+    batches overlaps the device work of earlier ones: neither ``put`` nor
+    ``run`` waits for the device, so up to ``depth`` batches are queued
+    on it while the next one uploads. Without ``finish`` the yielded
+    outputs are the engine's device tensors. With ``finish(outs) ->
+    result`` each output goes to a pool of ``workers`` threads, whose
+    device-to-host fetch and numpy tail overlap the main thread's uploads.
+    A worker starts on an output once the device has written it (an event
+    recorded after ``run``), and fetches it on a stream of its own: on the
+    default stream the fetch would wait for the batches queued after it.
+    Results still come in input order, and an exception in the tail
+    re-raises at the yield.
     """
     from collections import deque
 
@@ -215,11 +272,43 @@ def serve_stream(engine, batches, depth=3, finish=None, workers=1):
     from concurrent.futures import ThreadPoolExecutor
     with ThreadPoolExecutor(max_workers=max(1, workers)) as pool:
         for x in batches:
-            q.append(pool.submit(finish, engine.run(engine.put(x))))
+            outs = engine.run(engine.put(x))
+            q.append(pool.submit(_finish_when_written, finish, outs,
+                                 _written_event(outs)))
             if len(q) > depth:
                 yield q.popleft().result()
         while q:
             yield q.popleft().result()
+
+
+def _written_event(outs):
+    """(device, an event recorded on its current stream) after ``outs`` (a
+    device tensor or a tuple of them) were queued; None off the card."""
+    t = outs[0] if isinstance(outs, tuple) else outs
+    if not (isinstance(t, torch.Tensor) and t.is_cuda):
+        return None
+    # a blocking event: a worker waiting on it sleeps instead of spinning
+    # on a core that another worker's numpy tail could use
+    ev = torch.cuda.Event(blocking=True)
+    ev.record(torch.cuda.current_stream(t.device))
+    return t.device, ev
+
+
+_fetch = threading.local()
+
+
+def _finish_when_written(finish, outs, written):
+    """``finish(outs)`` once ``written`` has fired, on this thread's fetch
+    stream for the device (made on first use)."""
+    if written is None:
+        return finish(outs)
+    device, ev = written
+    ev.synchronize()
+    streams = _fetch.__dict__.setdefault("streams", {})
+    if device not in streams:
+        streams[device] = torch.cuda.Stream(device)
+    with torch.cuda.stream(streams[device]):
+        return finish(outs)
 
 
 # Engine cache of net_forward / inference. Entries hold strong references
@@ -313,15 +402,22 @@ def postprocess(y_bon_, y_cor_, H=512, W=1024, force_cuboid=False,
 
 
 def inference(model, state_dict, x, flip=False, rotate=(), visualize=False,
-              force_cuboid=False, force_raw=False, min_v=None, r=0.05):
+              force_cuboid=False, force_raw=False, min_v=None, r=0.05,
+              batch_size=None):
     """Reference-compatible batched inference. x: [B, H, W, 3] in [0, 1].
     Returns a list of (cor_id, z0, z1, vis_out) per pano (the reference
-    takes one pano at a time)."""
+    takes one pano at a time). With ``batch_size`` the forward runs on x
+    padded to that many rows with repeats of its last pano, so that a
+    run's chunks, its short tail too, share one engine (on the card, one
+    capture); the results are x's rows' only."""
     x = np.asarray(x, np.float32)
     B, H, W, _ = x.shape
-    bon, cor = net_forward(model, state_dict, x, flip, rotate)
-    bon = bon.cpu().numpy()
-    cor = cor.cpu().numpy()
+    xin = x
+    if batch_size is not None and B < batch_size:
+        xin = np.concatenate([x, np.repeat(x[-1:], batch_size - B, 0)])
+    bon, cor = net_forward(model, state_dict, xin, flip, rotate)
+    bon = bon[:B].cpu().numpy()
+    cor = cor[:B].cpu().numpy()
 
     results = []
     for b in range(B):

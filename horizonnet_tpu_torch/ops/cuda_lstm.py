@@ -17,15 +17,23 @@ with h split exactly into three bf16 terms (``split_bf16x3`` spells the
 split out; nothing on the main path calls it).
 
 ``bilstm_recurrence`` launches the kernel for a CUDA tensor and runs the
-twin for a CPU tensor; there is no fallback from one to the other.
+twin for a CPU tensor; there is no fallback from one to the other. The
+launch is a cooperative kernel after a cudaMemsetAsync of its barrier
+flags, both stream operations, so a CUDA graph captures them as they are
+(program.py); the wrapper's scratch then comes from the graph's pool.
 """
 
 import ctypes
 
 import torch
 
-#: Number of calls that launched the CUDA kernel (one per recurrence).
+from . import launch_counts
+
+#: Number of times the CUDA kernel was launched (one per recurrence): a
+#: call that launches it adds one; a captured program (program.py) adds its
+#: captured launches on each replay, and none while it is captured.
 launches = 0
+launch_counts.register(__name__, "launches")
 
 _SMEM_LIMIT = 232448  # bytes of dynamic shared memory a Hopper CTA may use
 

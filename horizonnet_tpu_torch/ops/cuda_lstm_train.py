@@ -28,16 +28,25 @@ terms (``cuda_lstm.split_bf16x3``), which keeps the f32 contract.
 
 ``bilstm_recurrence_trainable`` launches the kernels for CUDA tensors and
 runs the twins for CPU tensors; there is no fallback from one to the other.
+Both launches are stream operations (as K1's, ops/cuda_lstm.py), so a CUDA
+graph of the train step captures K2 in the forward and K3 inside the
+backward, which autograd runs on the forward's stream.
 """
 
 import ctypes
 
 import torch
 
-#: Number of calls that launched K2 (one per forward recurrence).
+from . import launch_counts
+
+#: Number of times K2 was launched (one per forward recurrence) and K3
+#: (one per backward recurrence): a call that launches one adds one; a
+#: captured train step (program.py) adds its captured launches on each
+#: replay, and none while it is captured.
 fwd_launches = 0
-#: Number of calls that launched K3 (one per backward recurrence).
 bwd_launches = 0
+launch_counts.register(__name__, "fwd_launches")
+launch_counts.register(__name__, "bwd_launches")
 
 def _check_shapes(xw_like, w_hh_t):
     T, D, B, G = xw_like.shape

@@ -17,7 +17,12 @@ import torch
 
 
 def keep_mask(shape, keep_prob, generator, device):
-    """Bool tensor of ``shape`` on ``device``: True with ``keep_prob``."""
+    """Bool tensor of ``shape`` on ``device``: True with ``keep_prob``.
+
+    Under a captured train step (train/engine.py) ``generator`` is the
+    engine's own, registered with the CUDA graph: each replay draws from
+    its state, which the engine copies in from the caller's generator
+    before the replay and back after it."""
     return torch.rand(shape, generator=generator, device=device) < keep_prob
 
 

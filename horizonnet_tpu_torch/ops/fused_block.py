@@ -22,14 +22,23 @@ Products take dtype inputs and sum in f32.
 ``fused_bottleneck`` launches the kernel for a CUDA tensor and runs the
 twin for a CPU tensor; there is no fallback from one to the other. A bf16
 launch the card refuses (its thread-block cluster or its TMA maps) raises.
+Under a CUDA graph the TMA maps are encoded once, at capture, with the
+addresses of the weight layouts made here: inside the captured program
+those come from the graph's pool, from parameters that stay where they
+are (InferenceEngine.update_variables copies into them).
 """
 
 import ctypes
 
 import torch
 
-#: Number of calls that launched the CUDA kernel (one per block).
+from . import launch_counts
+
+#: Number of times the CUDA kernel was launched (one per block): a call
+#: that launches it adds one; a captured program (program.py) adds its
+#: captured launches on each replay, and none while it is captured.
 launches = 0
+launch_counts.register(__name__, "launches")
 
 _SMEM_LIMIT = 232448  # bytes of dynamic shared memory a Hopper CTA may use
 

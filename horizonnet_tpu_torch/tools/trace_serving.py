@@ -9,7 +9,9 @@ one warm-up batch profiles S batches with torch.profiler (CUDA activity).
 It prints the device kernels (memory copies and sets included) by device
 time a batch, each one's share of a batch, and the device-busy share: the
 union of the kernels' intervals over the span from the first kernel's
-start to the last one's end. The last line is the same as JSON.
+start to the last one's end. The last line is the same as JSON. The
+engine replays its captured CUDA graph, and the profiler records each
+kernel of a replay as it records an eager launch.
 
     python3 horizonnet_tpu_torch/tools/trace_serving.py \\
         [batch] [fmt] [postproc] [top_n]

@@ -19,12 +19,15 @@ onto optax's (train/checkpoint.py writes it in optax's layout):
                         its count increments)
 Frozen parameters (a freeze mask) are left out of the optimizer and take
 no gradient, where optax zeroes their updates: they never move either way.
+As in optax inside JAX's compiled step, the count is a tensor on the
+parameters' device, and the learning rate and Adam's bias corrections are
+computed from it there in float32, so that a CUDA graph of the step
+(train/engine.py) moves them at every replay.
 """
 
 from dataclasses import dataclass
 from typing import Callable, Optional
 
-import numpy as np
 import torch
 
 
@@ -50,7 +53,11 @@ class OptimizerSpec:
     freeze_mask: Optional[dict]
 
     def lr_at(self, count):
-        return self.schedule(count) if self.schedule is not None else self.lr
+        """The learning rate after ``count`` updates, a float32 tensor
+        like ``count`` (schedules take tensors: train/schedule.py)."""
+        if self.schedule is None:
+            return torch.full_like(count, self.lr)
+        return self.schedule(count)
 
     def init(self, params):
         """``params``: {name: tensor}. -> Optimizer over the trainable
@@ -73,8 +80,9 @@ def make_optimizer(optim="Adam", schedule=None, lr=1e-4, beta1=0.9,
 
 
 class Optimizer:
-    """State of one OptimizerSpec over named parameters: ``count`` updates
-    taken, Adam's ``mu`` and ``nu`` or SGD's ``trace`` per trainable
+    """State of one OptimizerSpec over named parameters: the number of
+    updates taken (``count``; an int32 tensor on the parameters' device,
+    ``count_t``), Adam's ``mu`` and ``nu`` or SGD's ``trace`` per trainable
     parameter."""
 
     B2 = 0.999
@@ -84,7 +92,8 @@ class Optimizer:
         self.spec = spec
         mask = spec.freeze_mask or {}
         self.params = {n: p for n, p in params.items() if mask.get(n, True)}
-        self.count = 0
+        device = next(iter(params.values())).device if params else None
+        self.count_t = torch.zeros((), dtype=torch.int32, device=device)
         zeros = lambda: {n: torch.zeros_like(p)  # noqa: E731
                          for n, p in self.params.items()}
         if spec.optim == "Adam":
@@ -92,7 +101,22 @@ class Optimizer:
         else:
             self.moments = {"trace": zeros()}
 
+    @property
+    def count(self):
+        """Updates taken, as an int (on the card: waits for the step)."""
+        return int(self.count_t)
+
+    @count.setter
+    def count(self, n):
+        self.count_t.fill_(int(n))
+
+    def state_tensors(self):
+        """Every tensor that a step writes: the count and the moments."""
+        return [self.count_t] + [t for m in self.moments.values()
+                                 for t in m.values()]
+
     def to(self, device):
+        self.count_t = self.count_t.to(device)
         self.moments = {k: {n: t.to(device) for n, t in m.items()}
                         for k, m in self.moments.items()}
         return self
@@ -100,16 +124,18 @@ class Optimizer:
     @torch.no_grad()
     def step(self):
         """One update from each parameter's ``.grad`` (None counts as
-        zero)."""
-        spec, f = self.spec, np.float32
+        zero). Waits for nothing: the count, the learning rate and the
+        bias corrections stay on the device."""
+        spec = self.spec
         names = list(self.params)
         ps = [self.params[n] for n in names]
         gs = [p.grad if p.grad is not None else torch.zeros_like(p)
               for p in ps]
         if spec.weight_decay:
             gs = torch._foreach_add(gs, ps, alpha=spec.weight_decay)
-        lr = spec.lr_at(self.count)
-        self.count += 1
+        c = self.count_t.float()
+        neg_lr = -spec.lr_at(c)
+        self.count_t.add_(1)
         if spec.optim == "Adam":
             b1 = spec.beta1
             mu = [self.moments["mu"][n] for n in names]
@@ -119,8 +145,8 @@ class Optimizer:
             torch._foreach_mul_(nu, self.B2)
             torch._foreach_add_(nu, torch._foreach_mul(gs, gs),
                                 alpha=1.0 - self.B2)
-            bc1 = float(f(1) - f(b1) ** f(self.count))
-            bc2 = float(f(1) - f(self.B2) ** f(self.count))
+            bc1 = 1.0 - torch.pow(b1, c + 1.0)
+            bc2 = 1.0 - torch.pow(self.B2, c + 1.0)
             denom = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
             torch._foreach_add_(denom, self.EPS)
             upd = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
@@ -128,7 +154,8 @@ class Optimizer:
             upd = [self.moments["trace"][n] for n in names]
             torch._foreach_mul_(upd, spec.beta1)
             torch._foreach_add_(upd, gs)
-        torch._foreach_add_(ps, upd, alpha=-lr)
+        # p + u * (-lr) in one rounding, as an add with alpha=-lr does
+        torch._foreach_addcmul_(ps, upd, [neg_lr] * len(ps))
 
 
 class TrainState:

@@ -521,3 +521,187 @@ def test_dataset_vis_on_card_with_augmentation(cuda, tmp_path):
     out = read_png(str(tmp_path / "vis" / "room0.png"))
     assert out.shape == (33 + 512, 1024, 3) and out.dtype == np.uint8
     assert out.std() > 0
+
+
+# The engines' captured programs (horizonnet_tpu_torch/program.py): a CUDA
+# graph replays the eager program's kernels on the same inputs, so the
+# outputs are equal bit for bit; a replay counts its kernels' launches.
+def _small_serving(graph, fused_blocks="", seed=0, device="cuda"):
+    from horizonnet_tpu_torch.inference import InferenceEngine
+    from horizonnet_tpu_torch.models import build_model
+
+    model = build_model("resnet50", True, device=device, seed=seed,
+                        dtype=torch.bfloat16, fused_blocks=fused_blocks)
+    return InferenceEngine(model, model.state_dict(), batch_size=2, W=256,
+                           postproc="cuboid", input_format="uint8",
+                           device=device, graph=graph)
+
+
+def _uint8_batches(n, B=2, W=256, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, (B, 512, W, 3), dtype=np.uint8)
+            for _ in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused_blocks,per_batch", [("", (2, 0)),
+                                                    ("kernel", (2, 12))])
+def test_graphed_serving_equals_eager(cuda, fused_blocks, per_batch):
+    """resnet50_rnn bf16 cuboid serving at 512x256, B=2: the captured
+    program equals the eager one bit for bit on three batches, and a replay
+    counts K1's (and, fused, K4's) launches as the eager call does."""
+    from horizonnet_tpu_torch.ops import fused_block
+
+    eager = _small_serving(False, fused_blocks)
+    graphed = _small_serving(True, fused_blocks)
+    assert eager.program is None and graphed.program is not None
+    for x in _uint8_batches(3):
+        n0 = (cuda_lstm.launches, fused_block.launches)
+        want = eager(x)
+        torch.cuda.synchronize()
+        n1 = (cuda_lstm.launches, fused_block.launches)
+        got = graphed(x)
+        torch.cuda.synchronize()
+        n2 = (cuda_lstm.launches, fused_block.launches)
+        assert torch.equal(got, want)
+        assert tuple(b - a for a, b in zip(n0, n1)) == per_batch
+        assert tuple(b - a for a, b in zip(n1, n2)) == per_batch
+
+
+@pytest.mark.cuda
+def test_put_does_not_wait_for_the_device(cuda):
+    """With the card busy for ~200 ms, put returns in a few ms (pinned
+    staging and a copy stream), and the batch it uploads is served right."""
+    import time
+
+    from horizonnet_tpu_torch.inference import serve_stream
+
+    eng = _small_serving(True)
+    xs = _uint8_batches(6, seed=1)
+    want = [eng(x) for x in xs]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(400_000_000)          # ~0.2 s of the card's clock
+    t0 = time.perf_counter()
+    up = eng.put(xs[0])
+    put_s = time.perf_counter() - t0
+    got = eng.run(up)
+    done = torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    assert put_s < 0.02 and not done        # neither call waited
+    assert torch.equal(got, want[0])
+    # serve_stream at depth 3 over six batches: each its own result
+    for g, w in zip(serve_stream(eng, iter(xs), depth=3), want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_graphed_update_variables_equals_a_fresh_engine(cuda):
+    """update_variables copies into the captured parameters: the next
+    replay equals an engine built with the new weights."""
+    from horizonnet_tpu_torch.models import build_model
+
+    eng = _small_serving(True, seed=0)
+    new_sd = build_model("resnet50", True, device="cuda", seed=1,
+                         dtype=torch.bfloat16).state_dict()
+    x = _uint8_batches(1, seed=2)[0]
+    before = eng(x)
+    eng.update_variables(new_sd)
+    fresh = _small_serving(True, seed=1)
+    got = eng(x)
+    assert torch.equal(got, fresh(x))
+    assert not torch.equal(got, before)
+
+
+def _small_trainer(graph, device="cuda"):
+    from horizonnet_tpu_torch.models import build_model
+    from horizonnet_tpu_torch.train.engine import TrainEngine
+    from horizonnet_tpu_torch.train.schedule import warmup_poly_schedule
+    from horizonnet_tpu_torch.train.step import (create_train_state,
+                                                 make_optimizer)
+
+    model = build_model("resnet18", True, device=device, seed=0,
+                        dtype=torch.bfloat16, lstm_impl="kernel_train",
+                        param_dtype=torch.float32)
+    state = create_train_state(model, make_optimizer(
+        "Adam", warmup_poly_schedule(1e-3, 20, 1e-6, 2)))
+    return TrainEngine(model, state, 2, 512, 256, device=device, graph=graph)
+
+
+@pytest.mark.cuda
+def test_graphed_train_steps_equal_eager(cuda):
+    """Three captured steps against three eager ones from the same state,
+    the third with a new generator (the train CLI makes one an epoch): the
+    losses, the parameters, the running statistics and Adam's state are
+    equal bit for bit (the step has no atomics: ops/resize.py), the
+    generators advance alike, and a replay counts K2's and K3's launches
+    (two each a step)."""
+    from horizonnet_tpu_torch.ops import cuda_lstm_train as clt
+
+    rng = np.random.default_rng(0)
+    batch = (rng.uniform(0, 1, (2, 512, 256, 3)).astype(np.float32),
+             rng.normal(0, 0.5, (2, 2, 256)).astype(np.float32),
+             rng.uniform(0, 1, (2, 1, 256)).astype(np.float32))
+    engs = {"eager": _small_trainer(False), "graphed": _small_trainer(True)}
+    assert engs["graphed"].program is not None
+    out, gens = {}, {}
+    for name, eng in engs.items():
+        gens[name] = [torch.Generator(device="cuda").manual_seed(s)
+                      for s in (0, 0, 1)]
+        n0 = (clt.fwd_launches, clt.bwd_launches)
+        out[name] = [eng.step(*batch, g) for g in gens[name]]
+        torch.cuda.synchronize()
+        assert (clt.fwd_launches - n0[0], clt.bwd_launches - n0[1]) == (6, 6)
+    for a, b in zip(gens["graphed"], gens["eager"]):
+        assert torch.equal(a.get_state(), b.get_state())
+
+    for mg, me in zip(out["graphed"], out["eager"]):
+        for k in me:
+            assert torch.equal(mg[k], me[k]), k
+    g, e = engs["graphed"], engs["eager"]
+    for (k, a), b in zip(g.model.state_dict().items(),
+                         e.model.state_dict().values()):
+        assert torch.equal(a, b), k
+    for a, b in zip(g.state.opt.state_tensors(), e.state.opt.state_tensors()):
+        assert torch.equal(a, b)
+    assert g.state.step == e.state.step == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["serve", "train"])
+def test_graphed_engine_captures_on_its_own_card(cuda, engine):
+    """An engine given a card by index captures, and replays, on that card
+    whichever card is current: with two cards or more the last one while
+    cuda:0 is current, with one card cuda:0 by its index. Its replays
+    equal its eager program and move the kernels' launch counts."""
+    from horizonnet_tpu_torch.ops import cuda_lstm_train as clt
+
+    n = torch.cuda.device_count()
+    dev = f"cuda:{n - 1}"
+    with torch.cuda.device(0):
+        if engine == "serve":
+            engs = {g: _small_serving(g, device=dev) for g in (False, True)}
+            x = _uint8_batches(1, seed=3)[0]
+            n0 = cuda_lstm.launches
+            got = engs[True](x)
+            torch.cuda.synchronize(dev)
+            assert cuda_lstm.launches - n0 == 2
+            assert got.device == torch.device(dev)
+            assert torch.equal(got, engs[False](x))
+        else:
+            rng = np.random.default_rng(1)
+            batch = (rng.uniform(0, 1, (2, 512, 256, 3)).astype(np.float32),
+                     rng.normal(0, 0.5, (2, 2, 256)).astype(np.float32),
+                     rng.uniform(0, 1, (2, 1, 256)).astype(np.float32))
+            engs = {g: _small_trainer(g, device=dev) for g in (False, True)}
+            n0 = clt.fwd_launches
+            got = engs[True].step(
+                *batch, torch.Generator(device=dev).manual_seed(0))
+            torch.cuda.synchronize(dev)
+            assert clt.fwd_launches - n0 == 2
+            want = engs[False].step(
+                *batch, torch.Generator(device=dev).manual_seed(0))
+            for k in want:
+                assert torch.equal(got[k], want[k]), k
+            for a, b in zip(engs[True].model.parameters(),
+                            engs[False].model.parameters()):
+                assert torch.equal(a, b)

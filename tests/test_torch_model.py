@@ -90,6 +90,29 @@ def test_wrap_pad_and_resize_match_jax(w, out_w):
         np.asarray(jax_resize(jnp.asarray(x), out_w, axis=-1)), atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w,out_w", [(8, 64), (32, 256), (16, 256)])
+def test_wrap_resize_matrix_equals_interpolate(dtype, w, out_w):
+    """The port's resize multiplies by its interpolation matrix (its
+    backward is then a product too, with no atomics on the card); it
+    equals F.interpolate's pad + resize + trim: bit for bit in bfloat16
+    (two exact products summed in float32, rounded once), to 1 ulp in
+    float32 (the products round there)."""
+    import torch.nn.functional as F
+
+    x = torch.from_numpy(np.random.default_rng(w).normal(
+        size=(2, 16, 3, w)).astype(np.float32)).to(dtype)
+    f = out_w // w
+    want = F.interpolate(wrap_pad_width(x, 1, dim=-1),
+                         size=(3, out_w + 2 * f), mode="bilinear",
+                         align_corners=False)[..., f:-f]
+    got = wrap_resize_width(x, out_w)
+    if dtype == torch.bfloat16:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1.2e-7, atol=1e-7)
+
+
 @pytest.mark.parametrize("k,stride,bias", [(3, (2, 1), True), (7, (2, 2), False),
                                            (3, (1, 1), False)])
 def test_wrapconv_matches_jax(k, stride, bias):
