@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases preprocess               # VP alignment
     python3 chip_smoke.py --phases eval                     # evals, tools
     python3 chip_smoke.py --phases parity                   # parity_eval
+    python3 chip_smoke.py --phases kernel flagship bench    # the benches
     python3 chip_smoke.py --phases kernel parallel          # the mesh
 
 Phases; any failed check makes the script exit non-zero:
@@ -18,13 +19,14 @@ Phases; any failed check makes the script exit non-zero:
             (csrc/fused_bottleneck.cu) from the checkout, one nvcc each, in
             parallel, and hold each against its plain PyTorch twin: f32 at
             a small shape (tol 1e-5) and bf16 at the main path's shape (K1
-            at serving T=256, D=2, B=64, H=512; K2/K3 at training B=8),
+            at serving T=256, D=2, B=64, H=512; K2/K3 at training B=8 and
+            at the reference recipe's B=24),
             tol 1e-2 relative to the largest entry (the bf16 output
             rounding: a one-ulp flip is 2^-7 of the value); K1's bf16
             output must also equal the twin's bit for bit on at least
             99.98 % of its entries (its three-term products keep the f32
             contract; products of one or two terms fall below), and at the
-            training shape K2's ys, gates and cs on at least 99.98 % and
+            training shapes K2's ys, gates and cs on at least 99.98 % and
             K3's dxw on at least 99.97 %; the autograd.Function's
             gradients against torch.autograd through the plain loop (f32,
             training shape, 1e-4 relative: a 256-step chain summed in
@@ -218,6 +220,19 @@ Phases; any failed check makes the script exit non-zero:
             --need_preprocess: exit 0, every aligned pano scored, finite
             metrics (random weights: no bar), K1 launched; the seconds a
             pano of the alignment, the inference and the eval.
+  bench     the port's throughput entry points, each in a fresh process
+            that prints its JSON line last: python -m
+            horizonnet_tpu_torch.bench with BENCH_REPS=3 BENCH_E2E_N=32
+            (the flagship's serving reps, device rate, serving MFU and the
+            raw-pano chain against REF_E2E.json), and
+            horizonnet_tpu_torch/tools/train_throughput.py 10 24 resnet50
+            bf16 pallas_train (the reference recipe: ms a step in each mode,
+            the train MFU, peak memory). Every number of both lines present
+            and finite, a provisional bench line before the whole one, each
+            MFU in (0, 100], K1 launched in the bench and K2/K3 in the
+            train run (each reports its counts, from 0 at its start), and
+            the bench's device panos/s within 10 % of the flagship phase's
+            captured rate when that phase ran.
   parallel  the multi-process layout (horizonnet_tpu_torch/parallel), for
             its semantics: the card machine has one card, so two ranks
             share it and no time here is a multi-GPU speed. Each part in
@@ -236,11 +251,7 @@ Phases; any failed check makes the script exit non-zero:
             statistics within PAR_BARS, the parameters after one Adam step
             within one step of one process's; at n_model 2 a rank holds
             half the encoder's parameter bytes; K2/K3 launched on every
-            rank; ms a step per layout; then the float32 distance of
-            (2, 1) taken apart: one process with cuDNN off against with
-            it, and (2, 1) with cuDNN off on both ranks against one
-            process with it off (printed, no bar). (3) data-parallel
-            serving on two
+            rank; ms a step per layout. (3) data-parallel serving on two
             ranks: the golden f32 (TF32 off) in cuboid and general mode
             within 2 px of golden_outputs.npz on every rank; the flagship
             (resnet50_rnn bf16, B=64, dct4) finite [64, 8, 2] on every
@@ -257,10 +268,11 @@ power limit, then one compact line of headline numbers a phase
 output when only that end is seen. Before the last line it prints one
 JSON line {"kernels": [...]} with each kernel's launches on the paths
 that run it, summed (K1: the flagship, densenet121 and int8 serving
-runs, the preprocess chain, the eval phase's inference CLI runs and the
-parity phase's card runs, each in a fresh process that reports its
-count, and the parallel phase's serving ranks; K2, K3: the resnet50 and
-densenet121 train runs and the parallel phase's torchrun run and ranks;
+runs, the preprocess chain, the eval phase's inference CLI runs, the
+parity phase's card runs and the bench, each in a fresh process that
+reports its count, and the parallel phase's serving ranks; K2, K3: the
+resnet50 and densenet121 train runs, train_throughput's run and the
+parallel phase's torchrun run and ranks;
 K4: the fused run; each counted from 0 just before its run, and logged
 by path), its error against the twin, its time beside the twin's, its
 bound and the library call's time.
@@ -273,6 +285,7 @@ result.
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -284,11 +297,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, "tests", "fixtures", "golden")
 PHASES = ("kernel", "golden", "flagship", "fused", "general", "cli", "host",
           "train", "train_cli", "dynamics", "densenet", "quant",
-          "preprocess", "eval", "parity", "parallel")
-# H100 SXM peaks: f32 outside the tensor cores, bf16 dense on the tensor
-# cores, and HBM3
+          "preprocess", "eval", "parity", "bench", "parallel")
+# H100 SXM peaks: f32 outside the tensor cores and HBM3 (the bf16 peak is
+# horizonnet_tpu_torch/utils/flops.py's PEAK_BF16_FLOPS)
 PEAK_F32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 FLAGSHIP_B = 64
 TRAIN_B = 8
@@ -339,6 +351,13 @@ def card_line():
     if out.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def _peak_bf16():
+    """The H100's dense bf16 rate, from its one home in the port."""
+    from horizonnet_tpu_torch.utils.flops import PEAK_BF16_FLOPS
+
+    return PEAK_BF16_FLOPS
 
 
 def bound(flops, nbytes, peak=PEAK_F32_FLOPS):
@@ -511,7 +530,7 @@ def phase_kernel(state):
     # K1's route: three exact bf16 products per step on the tensor cores;
     # beside it the bound of the same products as f32 CUDA-core FMAs
     nbytes, flops = lstm_bytes_flops(T, D, B, H, 2)
-    bms, by = bound(3 * flops, nbytes, PEAK_BF16_FLOPS)
+    bms, by = bound(3 * flops, nbytes, _peak_bf16())
     bms32, _ = bound(flops, nbytes)
     log(f"K1 bound at the serving shape: {bms:.3f} ms ({by}: 3 x "
         f"{flops / 1e9:.1f} GFLOP at 989 TFLOP/s bf16, {nbytes / 1e6:.1f} MB "
@@ -592,9 +611,13 @@ def phase_kernel_train(state, g):
         dys = torch.randn(T, D, B, H, generator=g)
         return [t.to(dev, dtype) for t in (xw, w, dys)]
 
+    # bf16 at the train phase's batch and at the recipe's batch of 24
+    # (horizonnet_tpu_torch/tools/train_throughput.py, the bench phase)
     err2 = err3 = 0.0
     for (T, D, B, H), dtype, tol in (((16, 2, 3, 32), torch.float32, 1e-5),
                                      ((256, 2, 8, 512), torch.bfloat16,
+                                      1e-2),
+                                     ((256, 2, 24, 512), torch.bfloat16,
                                       1e-2)):
         xw, w, dys = inputs(T, D, B, H, dtype)
         fwd_k = clt.train_fwd_cuda(xw, w)
@@ -624,7 +647,7 @@ def phase_kernel_train(state, g):
             same2 = [(a == b).float().mean().item()
                      for a, b in zip(fwd_k, fwd_p)]
             same3 = (dxw_k == dxw_p).float().mean().item()
-            log(f"K2 bf16 training shape: (ys, gates, cs) "
+            log(f"K2 bf16 B={B}: (ys, gates, cs) "
                 f"{[f'{100 * v:.4f}' for v in same2]} % equal to the twin's "
                 f"bit for bit (at least {100 * K2_SAME_BAR:g} %); K3 dxw "
                 f"{100 * same3:.4f} % (at least {100 * K3_SAME_BAR:g} %)")
@@ -634,10 +657,12 @@ def phase_kernel_train(state, g):
             check(same3 >= K3_SAME_BAR, f"K3 bf16 equals the twin on "
                   f"{same3} of its outputs: its products lose the f32 "
                   "contract")
-            note(state, k2_same_share=min(same2), k3_same_share=same3)
-            _one_kernel_per_call("K2", lambda: clt.train_fwd_cuda(xw, w))
-            _one_kernel_per_call("K3", lambda: clt.train_bwd_cuda(
-                gates, cs, dys, w))
+            note(state, **{f"k2_same_share_b{B}": min(same2),
+                           f"k3_same_share_b{B}": same3})
+            if B == TRAIN_B:
+                _one_kernel_per_call("K2", lambda: clt.train_fwd_cuda(xw, w))
+                _one_kernel_per_call("K3", lambda: clt.train_bwd_cuda(
+                    gates, cs, dys, w))
 
     # the autograd.Function against torch.autograd through the plain loop
     xw, w, dys = inputs(256, 2, 8, 512, torch.float32)
@@ -734,7 +759,7 @@ def phase_kernel_train(state, g):
         # beside it the bound of the same products as f32 CUDA-core FMAs
         nbytes, flops = lstm_bytes_flops(T, D, B, H, 2, residuals=True,
                                          backward=bwd)
-        bms, by = bound(3 * flops, nbytes, PEAK_BF16_FLOPS)
+        bms, by = bound(3 * flops, nbytes, _peak_bf16())
         bms32, by32 = bound(flops, nbytes)
         log(f"{name} bound: {bms:.3f} ms ({by}: 3 x {flops / 1e9:.2f} GFLOP "
             f"at 989 TFLOP/s bf16, {nbytes / 1e6:.1f} MB at 3.35 TB/s); "
@@ -841,7 +866,7 @@ def phase_kernel_fused(state, g):
             ml = cuda_ms(lambda: blk(x))
         flops = 34.0 * Wd * Wd * B * H * W
         nbytes = 2.0 * B * H * W * C * 2 + 17 * Wd * Wd * 2 + (2 * Wd + C) * 4
-        bms, by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        bms, by = bound(flops, nbytes, _peak_bf16())
         log(f"K4 bf16 [B={B},H={H},W={W},C={C}]: relative {r:.2e}, abs "
             f"{a:.2e} (tol 3e-2 relative); kernel {ms:.3f} ms, plain twin "
             f"{mp:.3f} ms, unfused Bottleneck (cuDNN + ATen) {ml:.3f} ms "
@@ -856,7 +881,7 @@ def phase_kernel_fused(state, g):
                      ("library_ms", ml)):
             tot[k] += n * v
             by_stage[k].append(v)
-        t_ops += n * flops / PEAK_BF16_FLOPS
+        t_ops += n * flops / _peak_bf16()
         t_bytes += n * nbytes / PEAK_BYTES
     log(f"K4 over the 12 identity blocks of one resnet50 forward (B=64, bf16)"
         f": kernel {tot['ms']:.3f} ms, plain twin {tot['plain_ms']:.3f} ms, "
@@ -1104,6 +1129,7 @@ def phase_flagship(state):
         f"{n_batches} batches at depth 3: {_turns_line(serving, device)}; "
         f"peak memory eager {peak['eager']:.2f}, graphed "
         f"{peak['graphed']:.2f} GiB; K1 launches {launches} [{card}]")
+    state["flagship_device"] = dmed["graphed"]
     note(state, serving=med, device=dmed, peak_gib=peak,
          same_bits=sum(same), k1_a_batch=k1["graphed"],
          put_ms={k: v[0] for k, v in calls.items()},
@@ -2306,20 +2332,8 @@ def phase_quant(state):
               f"--quant_int8 CLI ({mode}) z1 off by {dz1}")
 
 
-PRE_ROTATIONS = {"room": (0, 0), "yaw20_tilt8": (20, 8),
-                 "yaw-35_tilt5": (-35, 5)}
 PRE_STAGES = ("cut_views", "lsd", "lift", "merge", "hough", "refit",
               "rotate")
-
-
-def _yaw_tilt(yaw, tilt):
-    import numpy as np
-
-    a, b = np.radians(yaw), np.radians(tilt)
-    return np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0],
-                     [0, 0, 1]]) @ np.array([[1, 0, 0],
-                                             [0, np.cos(b), -np.sin(b)],
-                                             [0, np.sin(b), np.cos(b)]])
 
 
 def _vp_deg(a, b):
@@ -2360,9 +2374,10 @@ def _preprocess_warps(state, room):
     512x1024, at the JAX package's bars between its two backends; each
     timed on both (wall ms, transfers included: what the pipeline pays)."""
     import numpy as np
+    from horizonnet_tpu_torch.bench import yaw_tilt
     from horizonnet_tpu_torch.preprocess import rotate, views
 
-    R = _yaw_tilt(20, 8)
+    R = yaw_tilt(20, 8)
     f64, f32 = room.astype(np.float64), room.astype(np.float32)
     cases = (
         ("cut_views_gray", lambda b: views.cut_views_gray(
@@ -2397,6 +2412,7 @@ def _preprocess_cli(raw_dir, out_root):
     through the CLI's main() in this one (a process takes ~10 s to start).
     Returns the VP rows of each backend by room."""
     import numpy as np
+    from horizonnet_tpu_torch.bench import PRE_ROTATIONS
     from horizonnet_tpu_torch.cli import preprocess
     from horizonnet_tpu_torch.utils.image import read_png
 
@@ -2445,6 +2461,8 @@ def phase_preprocess(state):
     import numpy as np
     import torch
     from concurrent.futures import ThreadPoolExecutor
+    from horizonnet_tpu_torch.bench import (PRE_ROTATIONS, raw_panos,
+                                            rolled_panos, yaw_tilt)
     from horizonnet_tpu_torch.inference import serve_stream
     from horizonnet_tpu_torch.ops import cuda_lstm
     from horizonnet_tpu_torch.ops.dct import pack_dct4
@@ -2471,9 +2489,7 @@ def phase_preprocess(state):
     room, _ = _golden_inputs()
     _preprocess_warps(state, room)
 
-    raws = {n: (room if n == "room" else host_resample
-                .rotate_panorama_uint8_host(room, R=_yaw_tilt(*yt)))
-            for n, yt in PRE_ROTATIONS.items()}
+    raws = raw_panos(room)
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as d:
         raw_dir = os.path.join(d, "raw")
@@ -2485,7 +2501,7 @@ def phase_preprocess(state):
     for name, yt in PRE_ROTATIONS.items():
         dev, host = vps["device"][name], vps["host"][name]
         between = max(_vp_rows_deg(dev, host))
-        vert, *horiz = _vp_rows_deg(dev, vp0 @ _yaw_tilt(*yt).T)
+        vert, *horiz = _vp_rows_deg(dev, vp0 @ yaw_tilt(*yt).T)
         log(f"preprocess CLI VP {name}: device against host backend "
             f"{between:.6f} deg (bar 0.05); against R vp0: vertical "
             f"{vert:.4f} deg (bar 0.1), horizontals "
@@ -2498,11 +2514,7 @@ def phase_preprocess(state):
     # the chain (bench.py's e2e recipe): a thread pool VP-aligns raw panos
     # while serve_stream keeps the card fed with batches of 8
     B, n_panos, reps = 8, 64, 3
-    W = room.shape[1]
-    rng = np.random.default_rng(1)
-    bases = list(raws.values())
-    panos = [np.roll(bases[i % len(bases)], int(r), axis=1)
-             for i, r in enumerate(rng.integers(0, W, n_panos))]
+    panos = rolled_panos(list(raws.values()), n_panos)
     workers = min(8, os.cpu_count() or 1)
     eng = _flagship_engine("cuboid", batch_size=B)
 
@@ -3123,39 +3135,17 @@ def _par_compare(got, ref):
     return out
 
 
-def _par_one_process(cudnn, group=None):
-    """The one-process float32 step of _par_train_setup (_par_step's
-    result) with cuDNN on or off; with ``group``, a one-rank process group,
-    the batch norms take their statistics through the sync formula of
-    models/layers.py::BatchNorm2d instead of torch's kernel."""
-    import torch
-    from horizonnet_tpu_torch.models.layers import BatchNorm2d
-
-    torch.backends.cudnn.enabled = cudnn
-    try:
-        eng, batch, gen = _par_train_setup(torch.float32)
-        if group is not None:
-            for m in eng.model.modules():
-                if isinstance(m, BatchNorm2d):
-                    m.data_group = group
-        return _par_step(eng, batch, gen)
-    finally:
-        torch.backends.cudnn.enabled = True
-        torch.cuda.empty_cache()
-
-
-def _par_train_rank(ref_path, layouts, cudnn=True):
+def _par_train_rank(ref_path, layouts):
     """One rank of the parallel phase's train check: for each compute dtype
     and layout, the first step against one process's (``ref_path``),
     K2/K3's launches, the encoder's parameter bytes here and whole, and
-    ms a step; with cudnn=False the convolutions run without cuDNN."""
+    ms a step."""
     import torch
     from horizonnet_tpu_torch.ops import cuda_lstm_train as clt
     from horizonnet_tpu_torch.parallel import make_mesh, shard_batch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cudnn.enabled = cudnn
     refs = torch.load(ref_path, weights_only=False)
     out = []
     for name, ref in refs.items():
@@ -3177,57 +3167,6 @@ def _par_train_rank(ref_path, layouts, cudnn=True):
             del eng
             torch.cuda.empty_cache()
     return out
-
-
-def _par_apart(state, root, ref):
-    """The float32 (TF32 off) distance of layout (2, 1) from one process,
-    taken apart by what changes the rounding: the convolutions' algorithms
-    (cuDNN on or off), the batch norm's statistics (the sync formula over a
-    one-rank group against torch's kernel) and the layout itself (two
-    ranks against one process with the same formula, cuDNN on and off).
-    ``ref``: the one-process step with cuDNN and torch's batch norm."""
-    import torch
-    import torch.distributed as dist
-    from horizonnet_tpu_torch.parallel.dryrun import run_ranks
-
-    card = state["card"]
-    t0 = time.perf_counter()
-    dist.init_process_group("gloo", world_size=1, rank=0, init_method=(
-        "file://" + os.path.join(root, "one_rank_store")))
-    try:
-        one = {(cudnn, sync): _par_one_process(
-            cudnn, dist.group.WORLD if sync else None)
-            for cudnn, sync in ((False, False), (True, True), (False, True))}
-    finally:
-        dist.destroy_process_group()
-    apart = {}
-    for cudnn in (True, False):
-        path = os.path.join(root, f"ref_sync_{cudnn}.pt")
-        torch.save({"float32": one[cudnn, True]}, path)
-        apart[cudnn] = run_ranks(_par_train_rank, 2, path, ((2, 1),), cudnn,
-                                 device="cuda", timeout=600)[0][0]
-    algo = _par_compare(one[False, False], ref)
-    sync = _par_compare(one[True, True], ref)
-    log(f"parallel train float32 (TF32 off), the (2, 1) distance taken "
-        f"apart, gradients over the whole model (worst conv-stack tensor): "
-        f"one process, cuDNN off against on {algo['grad_all']:.2e} "
-        f"({algo['grad_conv'][0]:.2e}); one process, the sync batch norm's "
-        f"formula against torch's {sync['grad_all']:.2e} "
-        f"({sync['grad_conv'][0]:.2e}); (2, 1) against one process with the "
-        f"same formula, cuDNN on {apart[True]['grad_all']:.2e} "
-        f"({apart[True]['grad_conv'][0]:.2e}), cuDNN off "
-        f"{apart[False]['grad_all']:.2e} "
-        f"({apart[False]['grad_conv'][0]:.2e}); bi-LSTM and head "
-        f"{apart[True]['grad_head'][0]:.2e} / "
-        f"{apart[False]['grad_head'][0]:.2e}, statistics "
-        f"{apart[True]['stats']:.2e} / {apart[False]['stats']:.2e} "
-        f"({time.perf_counter() - t0:.1f} s) [{card}]")
-    note(state, f32_cudnn_off=[algo["grad_all"], algo["grad_conv"][0]],
-         f32_sync_formula=[sync["grad_all"], sync["grad_conv"][0]],
-         f32_21_vs_sync_one={
-             "cudnn_" + ("on" if c else "off"): [
-                 r["grad_all"], r["grad_conv"][0], r["grad_head"][0],
-                 r["stats"], r["loss"]] for c, r in apart.items()})
 
 
 def _par_serve_rank(wire_path):
@@ -3322,28 +3261,14 @@ def phase_parallel(state):
 
         # 2. two ranks sharing the card (gloo) at each layout against one
         # process on the card, in float32 and in bf16
-        refs, one_ms, again = {}, {}, {}
+        refs, one_ms = {}, {}
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[-1]
-            for i in range(2):   # the second: one process's own spread
-                eng, batch, gen = _par_train_setup(dtype)
-                step = _par_step(eng, batch, gen)
-                if i == 0:
-                    refs[name] = step
-                    one_ms[name] = _step_ms(eng, batch, gen)
-                else:
-                    again[name] = _par_compare(step, refs[name])
-                del eng
-                torch.cuda.empty_cache()
-        for name, rep in again.items():
-            log(f"parallel train, one process {name} against itself (a "
-                f"second engine, the same seeds): losses {rep['loss']:.2e}, "
-                f"gradients over the whole model {rep['grad_all']:.2e}, "
-                f"worst conv-stack tensor {rep['grad_conv'][0]:.2e}, "
-                f"{100 * rep['flip']:.3f} % of parameters moved the other "
-                f"way [{card}]")
-            note(state, **{f"self_{name}": [rep["loss"], rep["grad_all"],
-                                            rep["grad_conv"][0]]})
+            eng, batch, gen = _par_train_setup(dtype)
+            refs[name] = _par_step(eng, batch, gen)
+            one_ms[name] = _step_ms(eng, batch, gen)
+            del eng
+            torch.cuda.empty_cache()
         bf16_noise = _par_compare(refs["bfloat16"], refs["float32"])
         bars = dict(PAR_BARS)
         bars["bfloat16"] = dict(bars["bfloat16"],
@@ -3401,8 +3326,6 @@ def phase_parallel(state):
         log(f"parallel train: both dtypes and layouts in {t_ranks:.1f} s "
             "(spawn, builds and steps)")
 
-        _par_apart(state, root, refs["float32"])
-
         # 3. data-parallel serving, two ranks
         wire = _flagship_wire(state)[0]
         wire_path = os.path.join(root, "wire.npy")
@@ -3458,6 +3381,110 @@ def phase_parallel(state):
         if lay["layout"][1] == 2:
             share = lay["enc_local"] / lay["enc_whole"]
             check(abs(share - 0.5) < 0.01, f"encoder share {share}")
+
+
+# The bench phase: the port's throughput entry points in fresh processes,
+# each printing its JSON line last
+BENCH_ENV = {"BENCH_REPS": "3", "BENCH_E2E_N": "32"}
+TRAIN_TOOL = os.path.join(REPO, "horizonnet_tpu_torch", "tools",
+                          "train_throughput.py")
+TRAIN_ARGS = ("10", "24", "resnet50", "bf16", "pallas_train")
+# bench.py's numbers (the JAX package's line), and the port's train line's
+BENCH_NUMBERS = (
+    "value", "vs_baseline", "reps_panos_per_sec", "warmup_rep_panos_per_sec",
+    "reps_spread_pct", "ingest_mb_per_s", "best_panos_per_sec",
+    "device_panos_per_sec", "serving_mfu_pct", "fwd_gflops_per_pano",
+    "e2e_panos_per_sec", "e2e_vs_baseline", "e2e_vs_baseline_gpu_adj",
+    "ref_e2e_panos_per_sec", "ref_e2e_gpu_adj_panos_per_sec", "e2e_workers",
+    "preprocess_s_per_pano", "wire_bytes_per_pano", "baseline_panos_per_sec",
+    "peak_flops")
+TRAIN_NUMBERS = ("ms_per_step", "panos_per_sec", "train_mfu_pct",
+                 "step_gflops", "peak_flops", "peak_mem_gib", "losses")
+
+
+def _json_lines(cmd, env, what):
+    """Run ``cmd`` from the checkout: (seconds, its stdout's JSON lines,
+    its other stdout lines)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=900)
+    dt = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{what} failed ({proc.returncode}):\n"
+          f"{proc.stderr[-4000:]}")
+    lines = proc.stdout.splitlines()
+    found = [json.loads(ln) for ln in lines if ln.startswith("{")]
+    check(found and lines[-1].startswith("{"),
+          f"{what} did not print its JSON line last")
+    return dt, found, [ln for ln in lines if not ln.startswith("{")]
+
+
+def _finite_numbers(rec, keys, what):
+    for k in keys:
+        v = rec.get(k)
+        vals = (list(v.values()) if isinstance(v, dict) else
+                v if isinstance(v, list) else [v])
+        check(bool(vals) and all(isinstance(x, (int, float))
+                                 and math.isfinite(x) for x in vals),
+              f"{what}: {k} = {v!r}, not finite numbers")
+
+
+def phase_bench(state):
+    import torch
+
+    card = state["card"]
+    torch.cuda.empty_cache()   # the card's memory to the fresh processes
+    env = dict(os.environ, PYTHONPATH=REPO, **BENCH_ENV)
+    dt_b, lines, _ = _json_lines(
+        [sys.executable, "-m", "horizonnet_tpu_torch.bench"], env, "bench")
+    rec = lines[-1]
+    check(len(lines) == 2 and lines[0].get("provisional") is True
+          and lines[0]["e2e_panos_per_sec"] is None
+          and "provisional" not in rec,
+          "bench printed no provisional line before its whole line")
+    _finite_numbers(rec, BENCH_NUMBERS, "bench")
+    check(all(k in rec for k in ("metric", "unit", "config", "device")),
+          "bench: a key of the line is missing")
+    check(rec["device"] == torch.cuda.get_device_name(0),
+          f"bench ran on {rec['device']}")
+    check(0 < rec["serving_mfu_pct"] <= 100,
+          f"serving MFU {rec['serving_mfu_pct']} %")
+    _launched(state, "bilstm_fwd", "bench",
+              rec["kernel_launches"]["cuda_lstm.launches"])
+    log(f"bench (python -m horizonnet_tpu_torch.bench, "
+        f"{' '.join(f'{k}={v}' for k, v in BENCH_ENV.items())}), "
+        f"{dt_b:.1f} s with the process start [{card}]: {json.dumps(rec)}")
+    if "flagship_device" in state:
+        ratio = rec["device_panos_per_sec"] / state["flagship_device"]
+        log(f"bench device panos/s {rec['device_panos_per_sec']} against "
+            f"the flagship phase's captured {state['flagship_device']:.2f}"
+            f" (ratio {ratio:.4f}; within 10 %)")
+        check(abs(ratio - 1) <= 0.10, f"bench's device rate is {ratio:.3f}"
+              " of the flagship phase's")
+    note(state, bench={k: rec[k] for k in (
+        "value", "reps_panos_per_sec", "warmup_rep_panos_per_sec",
+        "device_panos_per_sec", "serving_mfu_pct", "fwd_gflops_per_pano",
+        "e2e_panos_per_sec", "e2e_vs_baseline", "e2e_vs_baseline_gpu_adj",
+        "e2e_no_vp", "preprocess_s_per_pano", "ingest_mb_per_s")},
+        bench_s=dt_b)
+
+    torch.cuda.empty_cache()
+    dt_t, lines, text = _json_lines([sys.executable, TRAIN_TOOL, *TRAIN_ARGS],
+                                    dict(os.environ, PYTHONPATH=REPO),
+                                    "train_throughput")
+    trec = lines[-1]
+    _finite_numbers(trec, TRAIN_NUMBERS, "train_throughput")
+    check(0 < trec["train_mfu_pct"] <= 100,
+          f"train MFU {trec['train_mfu_pct']} %")
+    counts = trec["kernel_launches"]
+    _launched(state, "bilstm_train_fwd", "train_throughput",
+              counts["cuda_lstm_train.fwd_launches"])
+    _launched(state, "bilstm_bwd", "train_throughput",
+              counts["cuda_lstm_train.bwd_launches"])
+    log(f"train_throughput {' '.join(TRAIN_ARGS)}, {dt_t:.1f} s with the "
+        f"process start [{card}]:\n" + "\n".join(text) + f"\n{json.dumps(trec)}")
+    note(state, train={k: trec[k] for k in (
+        "ms_per_step", "train_mfu_pct", "step_gflops", "peak_mem_gib")},
+        train_s=dt_t)
 
 
 
@@ -3532,8 +3559,8 @@ def phase_parity(state):
     import io
 
     import numpy as np
+    from horizonnet_tpu_torch.bench import raw_panos
     from horizonnet_tpu_torch.models import build_model
-    from horizonnet_tpu_torch.preprocess import host_resample
     from horizonnet_tpu_torch.utils.image import write_png
 
     card = state["card"]
@@ -3642,9 +3669,7 @@ def phase_parity(state):
         pth = sub("resnet50_rnn.pth")
         _reference_pth(pth, model, model.state_dict())
         del model
-        raws = [img if yt == (0, 0) else host_resample
-                .rotate_panorama_uint8_host(img, R=_yaw_tilt(*yt))
-                for yt in PRE_ROTATIONS.values()]
+        raws = list(raw_panos(img).values())
         write_set("raw", [(raws[i % len(raws)], r)
                           for i, r in enumerate([0] * len(raws) + [
                               int(r) for r in rng.integers(
@@ -3738,7 +3763,8 @@ def main(argv=None):
               "train_cli": phase_train_cli, "dynamics": phase_dynamics,
               "densenet": phase_densenet, "quant": phase_quant,
               "preprocess": phase_preprocess, "eval": phase_eval,
-              "parity": phase_parity, "parallel": phase_parallel}
+              "parity": phase_parity, "bench": phase_bench,
+              "parallel": phase_parallel}
     for name in args.phases:
         t0 = time.perf_counter()
         state["phase"] = name

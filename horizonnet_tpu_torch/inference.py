@@ -73,6 +73,45 @@ def tta_forward(model, x, flip=False, rotate=()):
     return torch.stack(outs_bon).mean(0), torch.stack(outs_cor).mean(0)
 
 
+def wire_spec(input_format, B, H, W, luma_m, chroma_m):
+    """(numpy dtype, shape) of a batch of B in the wire ``input_format``."""
+    if input_format == "float":
+        return np.float32, (B, H, W, 3)
+    if input_format == "uint8":
+        return np.uint8, (B, H, W, 3)
+    if input_format == "yuv420":
+        return np.uint8, (B, 6, H // 2, W // 2)
+    if input_format == "dct":
+        return np.int8, _dct.dct_wire_shape(B, H, W, luma_m, chroma_m)
+    return np.int8, _dct.dct4_wire_shape(B, H, W, luma_m, chroma_m)
+
+
+def decode_wire(x, input_format, H, W, luma_m, chroma_m, quality):
+    """Wire tensor -> float RGB [B, 3, H, W] (a channels-last view)."""
+    if input_format == "uint8":
+        x = x.float() / 255.0
+    elif input_format == "yuv420":
+        x = unpack_yuv420_to_rgb(x)
+    elif input_format in ("dct", "dct4"):
+        unpack = (_dct.unpack_dct_to_rgb if input_format == "dct"
+                  else _dct.unpack_dct4_to_rgb)
+        x = unpack(x, H, W, luma_m, chroma_m, quality)
+    return x.permute(0, 3, 1, 2)
+
+
+def serving_outputs(model, rgb, H, W, flip=False, rotate=(), postproc=None):
+    """TTA forward and fit of a decoded batch -> a tuple of device
+    tensors: (packed cuboid,), (packed general,) or (bon, cor_prob)."""
+    bon, cor = tta_forward(model, rgb, flip, rotate)
+    if postproc == "cuboid":
+        return (pack_cuboid_outputs(
+            postprocess_cuboid_batch(bon, cor[:, 0], H, W)),)
+    if postproc == "general":
+        return (pack_general_outputs(
+            postprocess_general_batch(bon, cor[:, 0], H, W)),)
+    return bon, cor
+
+
 class InferenceEngine:
     """Serving engine for one config on one device.
 
@@ -128,18 +167,8 @@ class InferenceEngine:
                              else dct_chroma_m)
         self.dct_quality = (_dct.DEFAULT_QUALITY if dct_quality is None
                             else dct_quality)
-        wire = (self.dct_luma_m, self.dct_chroma_m)
-        if input_format == "float":
-            self._in = (np.float32, (batch_size, H, W, 3))
-        elif input_format == "uint8":
-            self._in = (np.uint8, (batch_size, H, W, 3))
-        elif input_format == "yuv420":
-            self._in = (np.uint8, (batch_size, 6, H // 2, W // 2))
-        elif input_format == "dct":
-            self._in = (np.int8, _dct.dct_wire_shape(batch_size, H, W, *wire))
-        else:
-            self._in = (np.int8, _dct.dct4_wire_shape(batch_size, H, W,
-                                                      *wire))
+        self._in = wire_spec(input_format, batch_size, H, W,
+                             self.dct_luma_m, self.dct_chroma_m)
         self.update_variables(state_dict)
         dtype, shape = self._in
         rows = (batch_size if mesh is None else batch_size // mesh.n_data,)
@@ -169,20 +198,6 @@ class InferenceEngine:
         if self.mesh is not None:
             x, = shard_batch(self.mesh, (x,))
         return self._ring.put(x)
-
-    def _decode(self, x):
-        """Wire tensor -> float RGB [B, 3, H, W] (a channels-last view)."""
-        fmt = self.input_format
-        if fmt == "uint8":
-            x = x.float() / 255.0
-        elif fmt == "yuv420":
-            x = unpack_yuv420_to_rgb(x)
-        elif fmt in ("dct", "dct4"):
-            unpack = (_dct.unpack_dct_to_rgb if fmt == "dct"
-                      else _dct.unpack_dct4_to_rgb)
-            x = unpack(x, self.H, self.W, self.dct_luma_m, self.dct_chroma_m,
-                       self.dct_quality)
-        return x.permute(0, 3, 1, 2)
 
     def run(self, x):
         """Queue the whole program on a batch: an Upload from ``put``, or a
@@ -215,16 +230,11 @@ class InferenceEngine:
         that shares it (the train CLI's validation) left it in train
         mode."""
         self.model.eval()
-        bon, cor = tta_forward(self.model, self._decode(x_dev), self.flip,
-                               self.rotate)
-        if self.postproc == "cuboid":
-            outs = (pack_cuboid_outputs(
-                postprocess_cuboid_batch(bon, cor[:, 0], self.H, self.W)),)
-        elif self.postproc == "general":
-            outs = (pack_general_outputs(
-                postprocess_general_batch(bon, cor[:, 0], self.H, self.W)),)
-        else:
-            outs = (bon, cor)
+        rgb = decode_wire(x_dev, self.input_format, self.H, self.W,
+                          self.dct_luma_m, self.dct_chroma_m,
+                          self.dct_quality)
+        outs = serving_outputs(self.model, rgb, self.H, self.W, self.flip,
+                               self.rotate, self.postproc)
         if self.mesh is not None:
             outs = tuple(self._gather_rows(o) for o in outs)
         return outs

@@ -29,3 +29,14 @@ def write(counts):
     """Set the counts of ``counts`` ({(module name, attribute): count})."""
     for (m, a), n in counts.items():
         setattr(sys.modules[m], a, n)
+
+
+def reset():
+    """Set every registered count to 0."""
+    write(dict.fromkeys(COUNTS, 0))
+
+
+def named():
+    """{"<module>.<attribute>": count} of every registered count, by the
+    module's last name (e.g. "cuda_lstm.launches")."""
+    return {f"{m.rsplit('.', 1)[1]}.{a}": n for (m, a), n in read().items()}

@@ -172,6 +172,27 @@ def test_train_bf16_keeps_the_f32_product(cuda):
 
 
 @pytest.mark.cuda
+def test_train_kernels_at_the_recipe_batch(cuda):
+    """At the reference recipe's batch of 24 (T=256, D=2, H=512, bf16: what
+    horizonnet_tpu_torch/tools/train_throughput.py runs) K2's ys, gates and
+    cs and K3's dxw lie within 1e-2 of the twins' and equal them bit for
+    bit on at least the training shape's shares."""
+    from horizonnet_tpu_torch.ops import cuda_lstm_train as clt
+
+    xw, w, dys = _train_inputs(cuda, 256, 2, 24, 512, "bfloat16", 24)
+    got = clt.train_fwd_cuda(xw, w)
+    want = clt.train_fwd_plain(xw, w)
+    for name, g, r in zip(("ys", "gates", "cs"), got, want):
+        assert g.shape == r.shape and _rel_err(g, r) <= 1e-2, name
+        assert (g == r).float().mean().item() >= K2_SAME_BAR, name
+    ys, gates, cs = want
+    dxw = clt.train_bwd_cuda(gates, cs, dys, w)
+    dxw_p = clt.train_bwd_plain(gates, cs, dys, w)
+    assert dxw.shape == (256, 2, 24, 2048) and _rel_err(dxw, dxw_p) <= 1e-2
+    assert (dxw == dxw_p).float().mean().item() >= K3_SAME_BAR
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_train_kernels_take_their_largest_hidden_size(cuda, dtype):
     """Each kernel runs at the largest H its wrapper admits on this card
