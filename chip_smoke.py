@@ -2471,9 +2471,19 @@ def phase_preprocess(state):
                                                  native)
     from horizonnet_tpu_torch.preprocess import (pano_edge_detection,
                                                  rotate_panorama_uint8)
+    from horizonnet_tpu_torch.utils import profiling
     from horizonnet_tpu_torch.utils.image import write_png
-    from horizonnet_tpu_torch.utils.profiling import stage_timer
 
+    def stage_s(since):
+        """{stage: seconds} of the preprocess spans since ``since`` (ns)."""
+        out = dict.fromkeys(PRE_STAGES, 0.0)
+        for sp in profiling.spans(since):
+            k = sp.name.removeprefix("preprocess/")
+            if k in out:
+                out[k] += (sp.end - sp.start) / 1e9
+        return out
+
+    profiling.enable()
     t0 = time.perf_counter()
     libs = {"lsd": lsd._load(), "merge": native._load(),
             "vote": native._load_vote(), "warp": host_resample._warp()}
@@ -2527,7 +2537,7 @@ def phase_preprocess(state):
                                 backend=backend, device="cuda")
         if r["vp"] is None:
             return pano, False
-        with stage_timer("preprocess/rotate"):
+        with profiling.span("preprocess/rotate"):
             return rotate_panorama_uint8(pano, r["vp"][2::-1],
                                          backend=backend,
                                          device="cuda"), True
@@ -2564,17 +2574,15 @@ def phase_preprocess(state):
     for backend in ("host", "device"):
         check(preprocess_one(panos[0], backend)[1],  # warm, untimed
               "VP detection failed on the warm-up pano")
-        before = dict(stage_timer.totals)
+        since = time.perf_counter_ns()
         times = []
         for p in panos[1:9]:
             t = time.perf_counter()
             preprocess_one(p, backend)
             times.append(time.perf_counter() - t)
         single[backend] = statistics.median(times)
-        split[backend] = {
-            k: (stage_timer.totals[f"preprocess/{k}"]
-                - before.get(f"preprocess/{k}", 0.0)) / len(times) * 1e3
-            for k in PRE_STAGES}
+        split[backend] = {k: v / len(times) * 1e3
+                          for k, v in stage_s(since).items()}
         log(f"preprocess_s_per_pano ({backend} backend, one pano at a time, "
             f"lsd_workers=1, median of {len(times)} warm panos): "
             f"{single[backend]:.4f} s; per stage ms a pano: "
@@ -2590,14 +2598,12 @@ def phase_preprocess(state):
     cuda_lstm.launches = 0
     for _ in range(reps):
         for backend in ("host", "device"):
-            before = dict(stage_timer.totals)
+            since = time.perf_counter_ns()
             rate, missed = chain(backend)
             rates[backend].append(rate)
             misses[backend].add(missed)
-            for k in PRE_STAGES:
-                stages[backend][k] += (
-                    stage_timer.totals[f"preprocess/{k}"]
-                    - before.get(f"preprocess/{k}", 0.0)) / reps / n_panos
+            for k, v in stage_s(since).items():
+                stages[backend][k] += v / reps / n_panos
     launches = cuda_lstm.launches
     for backend, seen in misses.items():
         # one backend sees the same panos in every run, and the pipeline is
@@ -2623,6 +2629,7 @@ def phase_preprocess(state):
             + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in split.items()))
         note(state, **{f"chain_stages_ms_{backend}": {
             k: v * 1e3 for k, v in split.items()}})
+    profiling.enable(False)
 
 
 EVAL_N = 16

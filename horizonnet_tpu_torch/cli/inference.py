@@ -30,9 +30,11 @@ JAX. ``--profile_dir`` runs the serving under torch.profiler (the CUDA
 activity on a CUDA device only) and writes one Chrome trace,
 ``*.pt.trace.json``, into the directory, with the JAX CLI's spans:
 serve/ingest, serve/forward+postproc (host path) and serve/general_finish
-(the general tail on serve_stream's worker threads). On a CUDA device
-every engine, the host path's included, captures its program once as a
-CUDA graph and replays it a batch (inference.py::InferenceEngine).
+(the general tail on serve_stream's worker threads), beside the
+program's own (utils/profiling.py: an open profiler session turns them
+on). On a CUDA device every engine, the host path's included, captures
+its program once as a CUDA graph and replays it a batch
+(inference.py::InferenceEngine).
 """
 
 import argparse
@@ -140,7 +142,7 @@ def _serve(paths, args, model, state_dict, device):
     from ..inference import InferenceEngine, inference, serve_stream
     from ..postproc import finish_general_batch, unpack_cuboid_outputs
     from ..utils.image import load_pano
-    from ..utils.profiling import trace_annotation
+    from ..utils import profiling
 
     use_device_pp = (args.device_postproc and not args.force_raw
                      and not args.visualize and args.min_v is None
@@ -175,10 +177,10 @@ def _serve(paths, args, model, state_dict, device):
         pad_to = (args.batch_size if device.type == "cuda" and len(chunks) > 1
                   else None)
         for chunk in chunks:
-            with trace_annotation("serve/ingest"):
+            with profiling.span("serve/ingest"):
                 x = np.stack([load_pano(p) for p in chunk])
             x = x.astype(np.float32) / 255.0
-            with trace_annotation("serve/forward+postproc"):
+            with profiling.span("serve/forward+postproc"):
                 results = inference(
                     model, state_dict, x, flip=args.flip, rotate=args.rotate,
                     visualize=args.visualize, force_cuboid=args.force_cuboid,
@@ -197,7 +199,7 @@ def _serve(paths, args, model, state_dict, device):
         """Lazy ingest, consumed by serve_stream: reading and packing the
         next chunks overlaps the device work of the current one."""
         for chunk in chunks:
-            with trace_annotation("serve/ingest"):
+            with profiling.span("serve/ingest"):
                 x = np.stack([load_pano(p) for p in chunk])
                 # fixed-batch engine: pad the tail chunk with repeats
                 if len(chunk) < args.batch_size:
@@ -213,7 +215,7 @@ def _serve(paths, args, model, state_dict, device):
 
     def finish(outs):
         if not args.force_cuboid:
-            with trace_annotation("serve/general_finish"):
+            with profiling.span("serve/general_finish"):
                 return [(c, z0, z1, None)
                         for c, z0, z1 in finish_general_batch(outs)]
         cid, z1 = unpack_cuboid_outputs(outs)

@@ -31,6 +31,7 @@ import argparse
 import glob
 import os
 import sys
+import time
 
 import numpy as np
 
@@ -38,9 +39,9 @@ import numpy as np
 def _process_one(i_path, args, backend, device, lsd_workers=None):
     from ..preprocess import pano_edge_detection, rotate_panorama_uint8
     from ..utils.image import load_pano, write_png
-    from ..utils.profiling import stage_timer
+    from ..utils import profiling
 
-    with stage_timer("preprocess/decode"):
+    with profiling.span("preprocess/decode"):
         img_ori = load_pano(i_path)
 
     result = pano_edge_detection(img_ori, q_error=args.q_error,
@@ -55,15 +56,15 @@ def _process_one(i_path, args, backend, device, lsd_workers=None):
     basename = os.path.splitext(os.path.basename(i_path))[0]
     warp = dict(backend=backend, device=device)
     if args.rgbonly:
-        with stage_timer("preprocess/rotate"):
+        with profiling.span("preprocess/rotate"):
             i_img = rotate_panorama_uint8(img_ori, vp[2::-1], **warp)
-        with stage_timer("preprocess/encode_png"):
+        with profiling.span("preprocess/encode_png"):
             write_png(os.path.join(args.output_dir, f"{basename}.png"),
                       i_img, level=1)
     else:
         # RGB + line raster warped in ONE program ([H, W, 6]), uint8 both
         # ways across the link (the PNGs are uint8 anyway)
-        with stage_timer("preprocess/rotate"):
+        with profiling.span("preprocess/rotate"):
             pano_edge = (result["pano_edge"] > 0)
             both = np.concatenate(
                 [img_ori, pano_edge.astype(np.uint8) * 255], axis=-1)
@@ -73,7 +74,7 @@ def _process_one(i_path, args, backend, device, lsd_workers=None):
                                f"{basename}_VP.txt"), "w") as f:
             for i in range(3):
                 f.write("%.6f %.6f %.6f\n" % tuple(vp[i]))
-        with stage_timer("preprocess/encode_png"):
+        with profiling.span("preprocess/encode_png"):
             # zlib level 1: these PNGs are pipeline intermediates, not
             # archives (the JAX CLI measured 56 against 213 ms a pano for
             # ~17% more bytes)
@@ -111,8 +112,8 @@ def main(argv=None):
                         help="thread pool size for pano-level parallelism "
                              "(0 = min(8, cpu_count))")
     parser.add_argument("--profile", action="store_true",
-                        help="print per-stage wall-clock totals to stderr "
-                             "at exit (utils.profiling.stage_timer)")
+                        help="record spans and print per-stage wall-clock "
+                             "totals to stderr at exit (utils/profiling.py)")
     parser.add_argument("--device", default="cuda",
                         help="torch device of the warps (cuda: the device "
                              "backend; cpu: the host backend); a missing "
@@ -130,6 +131,18 @@ def main(argv=None):
         return 1
     os.makedirs(args.output_dir, exist_ok=True)
 
+    from ..utils import profiling
+
+    if not args.profile:
+        return _run(paths, args, backend, device)
+    t0 = time.perf_counter_ns()
+    with profiling.enable():
+        rc = _run(paths, args, backend, device)
+    print(profiling.report(t0), file=sys.stderr)
+    return rc
+
+
+def _run(paths, args, backend, device):
     workers = args.num_workers or min(8, os.cpu_count() or 1)
     workers = min(workers, len(paths))
 
@@ -138,18 +151,12 @@ def main(argv=None):
     except ImportError:
         tqdm = None
 
-    def _report():
-        if args.profile:
-            from ..utils.profiling import stage_timer
-            print(stage_timer.report(), file=sys.stderr)
-
     if workers <= 1:
         it = tqdm(paths, unit="pano") if tqdm else paths
         for i_path in it:
             warn = _process_one(i_path, args, backend, device)
             if warn:
                 print(warn, file=sys.stderr)
-        _report()
         return 0
 
     # Split the cores between the pano pool and each pano's inner LSD
@@ -167,7 +174,6 @@ def main(argv=None):
             warn = fut.result()
             if warn:
                 print(warn, file=sys.stderr)
-    _report()
     return 0
 
 

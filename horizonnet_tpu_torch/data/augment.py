@@ -16,6 +16,7 @@ the host numpy RNG in the JAX package's order, so one seed gives the same
 parameters in both packages.
 """
 
+import itertools
 import math
 
 import numpy as np
@@ -23,7 +24,11 @@ import torch
 
 from ..ops import dct as _dct
 from ..ops.resample import bilinear_wrap_sample
+from ..utils import profiling
 from .labels import cor2xybound, stretched_corners
+
+#: numbers augment_batch's batches, the request ids of their spans
+_batches = itertools.count()
 
 
 def stretch_grid(H, W, kx, ky):
@@ -114,28 +119,32 @@ def augment_batch(imgs, cors, rng: np.random.Generator, H, W, wire="uint8",
     corner arrays. ``wire``: "uint8" uploads the pixels; "dct" / "dct4"
     pack them on the host (ops/dct.py) and decode on the device.
     Returns (aug_imgs [B, H, W, 3] float32 on ``device``, aug_cors list,
-    params list).
+    params list). The upload of the pixels and of the five parameter
+    vectors is traced as the span ``augment.upload`` (utils/profiling.py),
+    its request id the batch's number in the process.
     """
     B = imgs.shape[0]
     ps = [sample_aug_params(rng, cors[b], W, **flags) for b in range(B)]
     vec = lambda k, dtype: torch.tensor(  # noqa: E731
         [p[k] for p in ps], dtype=dtype, device=device)
-    args = (vec("kx", torch.float32), vec("ky", torch.float32),
-            vec("flip", torch.bool), vec("dx", torch.int64),
-            vec("p", torch.float32))
+    imgs = np.asarray(imgs)
     if wire in ("dct", "dct4"):
-        imgs = np.asarray(imgs)
         if imgs.dtype != np.uint8:
             imgs = np.clip(np.rint(imgs * 255.0), 0, 255).astype(np.uint8)
         pack, unpack = ((_dct.pack_dct4, _dct.unpack_dct4_to_rgb)
                         if wire == "dct4"
                         else (_dct.pack_dct, _dct.unpack_dct_to_rgb))
-        # decoded on the device, then warped
-        rgb = unpack(torch.from_numpy(pack(imgs)).to(device), H, W)
-    elif wire == "uint8":
-        rgb = torch.from_numpy(np.asarray(imgs)).to(device)
-    else:
+        imgs = pack(imgs)
+    elif wire != "uint8":
         raise ValueError(f"unknown training wire {wire!r}")
+    with profiling.span("augment.upload", next(_batches)):
+        args = (vec("kx", torch.float32), vec("ky", torch.float32),
+                vec("flip", torch.bool), vec("dx", torch.int64),
+                vec("p", torch.float32))
+        rgb = torch.from_numpy(imgs).to(device)
+    if wire in ("dct", "dct4"):
+        # decoded on the device, then warped
+        rgb = unpack(rgb, H, W)
     out = augment_images(rgb, *args)
     aug_cors = [transform_corners(cors[b], ps[b], W) for b in range(B)]
     return out, aug_cors, ps

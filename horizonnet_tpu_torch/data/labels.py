@@ -9,6 +9,7 @@ import numpy as np
 from ..geometry.equirect_host import (coorx2u, coory2v, u2coorx, uv2xy,
                                       v2coory)
 from ..geometry.polygon import point_segments_intersect
+from ..utils import profiling
 
 
 def find_occlusion(coor, w=1024, h=512):
@@ -62,9 +63,11 @@ def stretched_corners(cor, kx, ky, w=1024, h=512):
 
 def corner_heatmap(corx, w=1024, p_base=0.96):
     """Per-column wall-wall probability: p_base ** circular distance to
-    the nearest corner. Ref: dataset.py:107-120."""
-    cols = np.arange(w)
-    d = np.abs(corx[:, None] - cols[None, :])
-    d = np.minimum(d, w - d)
-    nearest = d.min(0) if len(corx) else np.full(w, np.inf)
-    return (p_base ** nearest).astype(np.float32)
+    the nearest corner. Ref: dataset.py:107-120. Traced as the span
+    ``labels.cor`` (utils/profiling.py)."""
+    with profiling.span("labels.cor"):
+        cols = np.arange(w)
+        d = np.abs(corx[:, None] - cols[None, :])
+        d = np.minimum(d, w - d)
+        nearest = d.min(0) if len(corx) else np.full(w, np.inf)
+        return (p_base ** nearest).astype(np.float32)

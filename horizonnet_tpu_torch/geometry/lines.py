@@ -7,6 +7,7 @@ for the training labels.
 
 import numpy as np
 
+from ..utils import profiling
 from .equirect_host import coorx2u, coory2v, uv2xy, v2coory
 
 
@@ -67,26 +68,28 @@ def cor_2_1d(cor, H, W):
     Rows of ``cor`` alternate ceiling/floor corners of each wall junction;
     the walls are traced at z=-50 (ceiling) and z=50 (floor), merged,
     deduplicated and interpolated periodically over the W columns, then
-    turned into down-positive latitude. Ref: dataset.py:137-159.
+    turned into down-positive latitude. Ref: dataset.py:137-159. Traced
+    as the span ``labels.bon`` (utils/profiling.py).
     """
-    bon_ceil_x, bon_ceil_y = [], []
-    bon_floor_x, bon_floor_y = [], []
-    n_cor = len(cor)
-    for i in range(n_cor // 2):
-        xys = pano_connect_points(cor[i * 2], cor[(i * 2 + 2) % n_cor],
-                                  z=-50, w=W, h=H)
-        bon_ceil_x.extend(xys[:, 0])
-        bon_ceil_y.extend(xys[:, 1])
-    for i in range(n_cor // 2):
-        xys = pano_connect_points(cor[i * 2 + 1], cor[(i * 2 + 3) % n_cor],
-                                  z=50, w=W, h=H)
-        bon_floor_x.extend(xys[:, 0])
-        bon_floor_y.extend(xys[:, 1])
-    bon_ceil_x, bon_ceil_y = sort_xy_filter_unique(bon_ceil_x, bon_ceil_y,
-                                                   y_small_first=True)
-    bon_floor_x, bon_floor_y = sort_xy_filter_unique(bon_floor_x, bon_floor_y,
-                                                     y_small_first=False)
-    bon = np.zeros((2, W))
-    bon[0] = np.interp(np.arange(W), bon_ceil_x, bon_ceil_y, period=W)
-    bon[1] = np.interp(np.arange(W), bon_floor_x, bon_floor_y, period=W)
-    return ((bon + 0.5) / H - 0.5) * np.pi
+    with profiling.span("labels.bon"):
+        bon_ceil_x, bon_ceil_y = [], []
+        bon_floor_x, bon_floor_y = [], []
+        n_cor = len(cor)
+        for i in range(n_cor // 2):
+            xys = pano_connect_points(cor[i * 2], cor[(i * 2 + 2) % n_cor],
+                                      z=-50, w=W, h=H)
+            bon_ceil_x.extend(xys[:, 0])
+            bon_ceil_y.extend(xys[:, 1])
+        for i in range(n_cor // 2):
+            xys = pano_connect_points(cor[i * 2 + 1], cor[(i * 2 + 3) % n_cor],
+                                      z=50, w=W, h=H)
+            bon_floor_x.extend(xys[:, 0])
+            bon_floor_y.extend(xys[:, 1])
+        bon_ceil_x, bon_ceil_y = sort_xy_filter_unique(
+            bon_ceil_x, bon_ceil_y, y_small_first=True)
+        bon_floor_x, bon_floor_y = sort_xy_filter_unique(
+            bon_floor_x, bon_floor_y, y_small_first=False)
+        bon = np.zeros((2, W))
+        bon[0] = np.interp(np.arange(W), bon_ceil_x, bon_ceil_y, period=W)
+        bon[1] = np.interp(np.arange(W), bon_floor_x, bon_floor_y, period=W)
+        return ((bon + 0.5) / H - 0.5) * np.pi

@@ -35,6 +35,7 @@ from .postproc.device import (pack_cuboid_outputs, pack_general_outputs,
                               postprocess_general_batch)
 from .postproc.manhattan import gen_ww
 from .program import CapturedProgram, Upload, UploadRing, engine_device
+from .utils import profiling
 
 INPUT_FORMATS = ("float", "uint8", "yuv420", "dct", "dct4")
 
@@ -103,13 +104,17 @@ def serving_outputs(model, rgb, H, W, flip=False, rotate=(), postproc=None):
     """TTA forward and fit of a decoded batch -> a tuple of device
     tensors: (packed cuboid,), (packed general,) or (bon, cor_prob)."""
     bon, cor = tta_forward(model, rgb, flip, rotate)
+    profiling.mark("head")
     if postproc == "cuboid":
-        return (pack_cuboid_outputs(
+        outs = (pack_cuboid_outputs(
             postprocess_cuboid_batch(bon, cor[:, 0], H, W)),)
-    if postproc == "general":
-        return (pack_general_outputs(
+    elif postproc == "general":
+        outs = (pack_general_outputs(
             postprocess_general_batch(bon, cor[:, 0], H, W)),)
-    return bon, cor
+    else:
+        return bon, cor
+    profiling.mark("fit")
+    return outs
 
 
 class InferenceEngine:
@@ -228,11 +233,15 @@ class InferenceEngine:
         """Decode, TTA forward and fit of one uploaded batch -> a tuple of
         device tensors. The model runs in eval mode, also when a trainer
         that shares it (the train CLI's validation) left it in train
-        mode."""
+        mode. Its device stages, marked for a capture
+        (utils/profiling.py::mark): decode, encoder (models/horizonnet.py),
+        head (height stage, bi-LSTM, linear, the TTA mean) and fit."""
         self.model.eval()
+        profiling.mark(None)
         rgb = decode_wire(x_dev, self.input_format, self.H, self.W,
                           self.dct_luma_m, self.dct_chroma_m,
                           self.dct_quality)
+        profiling.mark("decode")
         outs = serving_outputs(self.model, rgb, self.H, self.W, self.flip,
                                self.rotate, self.postproc)
         if self.mesh is not None:
@@ -266,29 +275,42 @@ def serve_stream(engine, batches, depth=3, finish=None, workers=1):
     default stream the fetch would wait for the batches queued after it.
     Results still come in input order, and an exception in the tail
     re-raises at the yield.
+
+    Batches are numbered from 0: while tracing is on (utils/profiling.py)
+    a batch's spans on the main thread (``put``, ``run`` and the replay
+    inside) and on its worker share that number as their request id. The
+    main thread's wait for the oldest result is ``serve.wait_result``, a
+    worker's wait for the device to write its batch ``serve.wait_written``.
     """
     from collections import deque
 
     q = deque()
     if finish is None:
-        for x in batches:
-            q.append(engine.run(engine.put(x)))
+        for k, x in enumerate(batches):
+            with profiling.request(k):
+                q.append(engine.run(engine.put(x)))
             if len(q) > depth:
                 yield q.popleft()
         while q:
             yield q.popleft()
         return
 
+    def wait():
+        k, fut = q.popleft()
+        with profiling.span("serve.wait_result", k):
+            return fut.result()
+
     from concurrent.futures import ThreadPoolExecutor
     with ThreadPoolExecutor(max_workers=max(1, workers)) as pool:
-        for x in batches:
-            outs = engine.run(engine.put(x))
-            q.append(pool.submit(_finish_when_written, finish, outs,
-                                 _written_event(outs)))
+        for k, x in enumerate(batches):
+            with profiling.request(k):
+                outs = engine.run(engine.put(x))
+            q.append((k, pool.submit(_finish_when_written, finish, outs,
+                                     _written_event(outs), k)))
             if len(q) > depth:
-                yield q.popleft().result()
+                yield wait()
         while q:
-            yield q.popleft().result()
+            yield wait()
 
 
 def _written_event(outs):
@@ -307,18 +329,24 @@ def _written_event(outs):
 _fetch = threading.local()
 
 
-def _finish_when_written(finish, outs, written):
+def _finish_when_written(finish, outs, written, req=None):
     """``finish(outs)`` once ``written`` has fired, on this thread's fetch
-    stream for the device (made on first use)."""
-    if written is None:
-        return finish(outs)
-    device, ev = written
-    ev.synchronize()
-    streams = _fetch.__dict__.setdefault("streams", {})
-    if device not in streams:
-        streams[device] = torch.cuda.Stream(device)
-    with torch.cuda.stream(streams[device]):
-        return finish(outs)
+    stream for the device (made on first use); its spans take request id
+    ``req``. Once the batch is written, the device stages of the replays
+    that have finished are read (utils/profiling.py::resolve)."""
+    with profiling.request(req):
+        if written is None:
+            return finish(outs)
+        device, ev = written
+        with profiling.span("serve.wait_written"):
+            ev.synchronize()
+        if profiling.pending():
+            profiling.resolve()
+        streams = _fetch.__dict__.setdefault("streams", {})
+        if device not in streams:
+            streams[device] = torch.cuda.Stream(device)
+        with torch.cuda.stream(streams[device]):
+            return finish(outs)
 
 
 # Engine cache of net_forward / inference. Entries hold strong references

@@ -37,6 +37,7 @@ from .layers import Linear, QuantConvBN
 from .resnet import ResNetEncoder, resnet_feature_channels
 from ..ops.dropout import dropout
 from ..ops.lstm import bilstm
+from ..utils import profiling
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -230,6 +231,7 @@ class HorizonNet(nn.Module):
         x = ((x - self.x_mean) / self.x_std).to(self.dtype)
         x = x.contiguous(memory_format=torch.channels_last)
         feats = self.feature_extractor.encoder(x)
+        profiling.mark("encoder")
         out_w = W // STEP_COLS
         feature = self.reduce_height_module(feats, out_w)   # [B, c, out_w]
         sc = STEP_COLS

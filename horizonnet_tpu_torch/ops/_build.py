@@ -6,7 +6,9 @@ at the repository root (listed in .gitignore), named by a hash of the
 source, of every local header it includes (``#include "x.cuh"``, followed
 to any depth) and of the flags, so an edited source or header rebuilds and
 an unchanged one loads from the last build. Nothing is built when a module is imported:
-the first call that launches a kernel builds it.
+the first call that launches a kernel builds it. Each library's build and
+load is recorded as the span ``build.kernel`` (utils/profiling.py), always,
+with a note of its name and whether nvcc ran or the last build was loaded.
 """
 
 import ctypes
@@ -17,6 +19,8 @@ import shutil
 import subprocess
 import tempfile
 import threading
+
+from ..utils import profiling
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
@@ -73,23 +77,31 @@ def load_kernel_library(name):
         lib = _loaded.get(name)
         if lib is not None:
             return lib
-        src = os.path.join(CSRC, name + ".cu")
-        out = os.path.join(BUILD_DIR,
-                           f"lib{name}_{source_digest(src)[:16]}.so")
-        if not os.path.isfile(out):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            try:
-                proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                                      capture_output=True, text=True)
-                if proc.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed for {src}:\n{proc.stdout}{proc.stderr}")
-                os.replace(tmp, out)
-            finally:
-                if os.path.exists(tmp):
-                    os.remove(tmp)
-        lib = ctypes.CDLL(out)
+        with profiling.span("build.kernel", note=f"{name} cache",
+                            always=True) as sp:
+            src = os.path.join(CSRC, name + ".cu")
+            out = os.path.join(BUILD_DIR,
+                               f"lib{name}_{source_digest(src)[:16]}.so")
+            if not os.path.isfile(out):
+                sp.note = f"{name} nvcc"
+                _nvcc_build(src, out)
+            lib = ctypes.CDLL(out)
         _loaded[name] = lib
         return lib
+
+
+def _nvcc_build(src, out):
+    """Compile ``src`` into the shared library ``out``."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed for {src}:\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)

@@ -18,6 +18,7 @@ import torch
 
 from ..geometry.equirect_host import coorx2u, infer_coory, xy2coor
 from ..geometry.polygon import polygon_is_valid, polygon_is_valid_batch
+from ..utils import profiling
 from .manhattan import Wall, _GreedyRing
 
 
@@ -180,8 +181,14 @@ def finish_general_batch(outputs, coorW=1024, coorH=512, z0=50.0):
 
     Panos whose candidate axes already alternate (the common Manhattan
     case) are finished in one vectorized numpy pass per wall-count group;
-    the rest take the scalar greedy.
+    the rest take the scalar greedy. Traced as the span ``tail.general``
+    (utils/profiling.py).
     """
+    with profiling.span("tail.general"):
+        return _finish_general_batch(outputs, coorW, coorH, z0)
+
+
+def _finish_general_batch(outputs, coorW, coorH, z0):
     if isinstance(outputs, (tuple, list)):
         locs, fit, score, l1, mean, z1, cub = (_host(a) for a in outputs)
     else:

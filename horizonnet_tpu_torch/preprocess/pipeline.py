@@ -1,16 +1,16 @@
 """Full VP-alignment pipeline: views -> LSD -> merge -> Hough -> refit.
 
-Counterpart of horizonnet_tpu/preprocess/pipeline.py, with the same stages,
-the same ``stage_timer`` names and the same result dict. Reference
-behavior: panoEdgeDetection (misc/pano_lsd_align.py:804-868). The view
-cutting + grayscale runs on the host or, with the device backend, as one
-torch program on the card; the rest is host work: LSD (C++),
+Counterpart of horizonnet_tpu/preprocess/pipeline.py, with the same stages
+and stage names (as spans, utils/profiling.py) and the same result dict.
+Reference behavior: panoEdgeDetection (misc/pano_lsd_align.py:804-868).
+The view cutting + grayscale runs on the host or, with the device backend,
+as one torch program on the card; the rest is host work: LSD (C++),
 lifting/merging/Hough/refit (vectorized numpy).
 """
 
 import numpy as np
 
-from ..utils.profiling import stage_timer
+from ..utils import profiling
 from .views import cut_views, cut_views_gray, rgb_to_gray, VIEW_DIRECTIONS
 from .lsd import lsd_batch
 from .lines import (lift_segments_to_sphere, combine_edges,
@@ -67,7 +67,7 @@ def pano_edge_detection(img, view_size=320, q_error=0.7, refine_iter=3,
         img_f = img.astype(np.float64) * (255.0 if img.max() <= 1.001 else 1.0)
     H, W = img.shape[:2]
 
-    with stage_timer("preprocess/cut_views"):
+    with profiling.span("preprocess/cut_views"):
         if want_views:
             views = cut_views(img_f, size=view_size, backend=backend,
                               device=device)
@@ -93,9 +93,9 @@ def pano_edge_detection(img, view_size=320, q_error=0.7, refine_iter=3,
     # at the pano level (cli/preprocess) pass lsd_workers to cap the
     # inner fan-out — a full hardware pool per pano would oversubscribe
     # the host by the outer pool size.
-    with stage_timer("preprocess/lsd"):
+    with profiling.span("preprocess/lsd"):
         segs = lsd_batch(grays, quant=q_error, num_workers=lsd_workers)
-    with stage_timer("preprocess/lift"):
+    with profiling.span("preprocess/lift"):
         for i in range(len(xs)):
             seg = segs[i]
             if len(seg):
@@ -114,7 +114,7 @@ def pano_edge_detection(img, view_size=320, q_error=0.7, refine_iter=3,
                           "panoLst": pano_lst})
             lifted.append(pano_lst)
 
-    with stage_timer("preprocess/merge"):
+    with profiling.span("preprocess/merge"):
         lines, olines = combine_edges(lifted)
 
     clines = lines.copy()
@@ -122,18 +122,18 @@ def pano_edge_detection(img, view_size=320, q_error=0.7, refine_iter=3,
     score = angle = 0
     groups = [np.zeros((0, 8))] * 3
     for _ in range(refine_iter):
-        with stage_timer("preprocess/hough"):
+        with profiling.span("preprocess/hough"):
             main_direct, score, angle = find_main_direction(clines)
         if main_direct is None:
             break
-        with stage_timer("preprocess/refit"):
+        with profiling.span("preprocess/refit"):
             tp, _ = assign_vanishing_type(lines, main_direct[:3], 0.1, 10)
             groups = [lines[tp == k] for k in range(3)]
             groups = [refit_line_segments(gk, main_direct[k], 0)
                       for k, gk in enumerate(groups)]
             clines = np.vstack(groups)
 
-    with stage_timer("preprocess/paint"):
+    with profiling.span("preprocess/paint"):
         pano_edge = (np.stack([
             paint_parameter_lines(gk, W, H) for gk in groups], -1)
             if want_pano_edge else None)

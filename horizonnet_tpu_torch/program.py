@@ -18,21 +18,36 @@ the previous call still runs. Here:
 On the CPU the ring's slots are plain tensors and no event is needed; the
 engines capture nothing there, nor under a mesh (parallel/), whose
 collectives stay eager.
+
+Spans (utils/profiling.py): ``upload.slot_wait`` where ``put`` waits for a
+slot's previous copy, ``program.replay`` around a replay, and, always,
+``program.capture`` around a program's warm-up and capture; the host
+counters ``program.replays`` and ``program.captures``
+(ops/launch_counts.py).
 """
 
 import ctypes
+import time
 
 import numpy as np
 import torch
 
 from .ops import launch_counts
+from .utils import profiling
 
 #: Eager runs of a program before its capture (CapturedProgram).
 WARMUP = 2
 
-#: CUgraphNodeType of a kernel node (the driver API's
-#: CU_GRAPH_NODE_TYPE_KERNEL)
+#: CUgraphNodeType of a kernel node and of an event-record node (libcuda's
+#: CU_GRAPH_NODE_TYPE_KERNEL and CU_GRAPH_NODE_TYPE_EVENT_RECORD)
 _KERNEL_NODE = 0
+_EVENT_RECORD_NODE = 7
+
+#: replays of a captured program, and captures, in this process
+replays = 0
+captures = 0
+launch_counts.register(__name__, "replays", host=True)
+launch_counts.register(__name__, "captures", host=True)
 
 
 class Upload:
@@ -86,8 +101,9 @@ class UploadRing:
         i = self._next
         self._next = (i + 1) % len(self.slots)
         self._serial[i] += 1
-        if self._cuda:
-            self._copied[i].synchronize()
+        if self._cuda and not self._copied[i].query():
+            with profiling.span("upload.slot_wait"):
+                self._copied[i].synchronize()
         np.copyto(self._host[i], a)
         if not self._cuda:
             return Upload(self, i, self._serial[i])
@@ -124,10 +140,21 @@ def engine_device(device):
     return device
 
 
-def graph_nodes(graph):
-    """(nodes, kernel nodes) of a captured ``torch.cuda.CUDAGraph`` made
-    with ``keep_graph=True``, read through the driver API."""
-    cu = ctypes.CDLL("libcuda.so.1")
+_loaded_libcuda = []
+
+
+def _libcuda():
+    """libcuda, loaded once."""
+    if not _loaded_libcuda:
+        cu = ctypes.CDLL("libcuda.so.1")
+        cu.cuGraphExecEventRecordNodeSetEvent.argtypes = [ctypes.c_void_p] * 3
+        _loaded_libcuda.append(cu)
+    return _loaded_libcuda[0]
+
+
+def _node_list(cu, graph):
+    """The node handles of a captured ``torch.cuda.CUDAGraph`` made with
+    ``keep_graph=True``."""
     handle = ctypes.c_void_p(graph.raw_cuda_graph())
     n = ctypes.c_size_t(0)
     if cu.cuGraphGetNodes(handle, None, ctypes.byref(n)):
@@ -135,14 +162,36 @@ def graph_nodes(graph):
     nodes = (ctypes.c_void_p * max(n.value, 1))()
     if cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)):
         raise RuntimeError("cuGraphGetNodes failed")
-    kernels = 0
+    return [ctypes.c_void_p(nodes[i]) for i in range(n.value)]
+
+
+def _node_type(cu, node):
     kind = ctypes.c_int(0)
-    for i in range(n.value):
-        if cu.cuGraphNodeGetType(ctypes.c_void_p(nodes[i]),
-                                 ctypes.byref(kind)):
-            raise RuntimeError("cuGraphNodeGetType failed")
-        kernels += kind.value == _KERNEL_NODE
-    return n.value, kernels
+    if cu.cuGraphNodeGetType(node, ctypes.byref(kind)):
+        raise RuntimeError("cuGraphNodeGetType failed")
+    return kind.value
+
+
+def graph_nodes(graph):
+    """(nodes, kernel nodes) of a captured ``torch.cuda.CUDAGraph`` made
+    with ``keep_graph=True``, read through libcuda."""
+    cu = _libcuda()
+    nodes = _node_list(cu, graph)
+    return len(nodes), sum(_node_type(cu, n) == _KERNEL_NODE for n in nodes)
+
+
+def event_record_nodes(graph):
+    """{CUevent handle: event-record node} of a captured
+    ``torch.cuda.CUDAGraph`` made with ``keep_graph=True``."""
+    cu = _libcuda()
+    out = {}
+    for node in _node_list(cu, graph):
+        if _node_type(cu, node) == _EVENT_RECORD_NODE:
+            ev = ctypes.c_void_p(0)
+            if cu.cuGraphEventRecordNodeGetEvent(node, ctypes.byref(ev)):
+                raise RuntimeError("cuGraphEventRecordNodeGetEvent failed")
+            out[ev.value] = node
+    return out
 
 
 def check_capture(nodes, kernels, launched):
@@ -182,15 +231,28 @@ class CapturedProgram:
     allocates, which come from the graph's own pool and stay at their
     addresses. A kernel wrapper counts its launch while the capture
     records it (ops/launch_counts.py); the counts are put back, and each
-    replay adds the captured launches, kernel by kernel. A capture that
-    fails, or that recorded less than the wrappers launched
-    (``check_capture``), raises: there is no eager fallback.
+    replay adds the captured launches, kernel by kernel (kernel launch
+    counts only: the host counters stay apart). A capture that fails, or
+    that recorded less than the wrappers launched (``check_capture``),
+    raises: there is no eager fallback.
+
+    Device stages: where ``fn`` calls ``profiling.mark`` at its stage
+    boundaries (the serving program: decode, encoder, head, fit), the
+    graph holds an event-record node at each. While tracing is on
+    (utils/profiling.py), each replay points those nodes at a set of
+    events of its own, taken from a pool, before its launch
+    (``cuGraphExecEventRecordNodeSetEvent``), so a later replay in flight
+    cannot overwrite them before they are read; the stages' device times
+    become ``device.<stage>`` spans once the replay has finished. Off, the
+    nodes record into the capture's own events, which nobody reads.
     """
 
     def __init__(self, fn, device, warmup=WARMUP, keep=(), generator=None):
+        global captures
         self.device = torch.device(device)
         keep = list(keep)
-        with torch.cuda.device(self.device):
+        with profiling.span("program.capture", always=True), \
+                torch.cuda.device(self.device):
             with torch.no_grad():
                 saved = [t.detach().clone() for t in keep]
             side = torch.cuda.Stream(self.device)
@@ -207,10 +269,13 @@ class CapturedProgram:
             if generator is not None:
                 self.graph.register_generator_state(generator)
             before = launch_counts.read()
+            marks = []
+            profiling.collect_marks(marks)
             try:
                 with torch.cuda.graph(self.graph, stream=side):
                     self.outputs = fn()
             finally:
+                profiling.collect_marks(None)
                 after = launch_counts.read()
                 launch_counts.write(before)
             #: {(module, count): launches in one replay} of the wrappers
@@ -220,12 +285,64 @@ class CapturedProgram:
                              if n != before.get(k, 0)}
             check_capture(*graph_nodes(self.graph),
                           sum(self.launches.values()))
+            self._stage_nodes(marks)
             self.graph.instantiate()
+            captures += 1
+
+    def _stage_nodes(self, marks):
+        """The stages between the capture's marks: their names, the
+        event-record node of each mark, and the capture's own events,
+        which live as long as the graph that records them."""
+        self._fixed = [ev for _, ev in marks]
+        #: names of the device stages, in order (none without two marks)
+        self.stages = [name for name, _ in marks[1:]]
+        if not self.stages:
+            return
+        nodes = event_record_nodes(self.graph)
+        self._nodes = [nodes[ev.cuda_event] for ev in self._fixed]
+        self._free = []          # event sets to point the nodes at
+        self._pointed = False    # the nodes hold a set of the pool
+
+    def _point(self, events):
+        cu = _libcuda()
+        exe = ctypes.c_void_p(self.graph.raw_cuda_graph_exec())
+        for node, ev in zip(self._nodes, events):
+            if cu.cuGraphExecEventRecordNodeSetEvent(
+                    exe, node, ctypes.c_void_p(ev.cuda_event)):
+                raise RuntimeError("cuGraphExecEventRecordNodeSetEvent "
+                                   "failed")
+        self._pointed = events is not self._fixed
+
+    def _event_set(self):
+        """A set of timing events for one replay's marks, from the pool
+        (each recorded once, so that it exists)."""
+        if self._free:
+            return self._free.pop()
+        events = [torch.cuda.Event(enable_timing=True) for _ in self._nodes]
+        for ev in events:
+            ev.record()
+        return events
 
     def replay(self):
-        with torch.cuda.device(self.device):
+        global replays
+        with profiling.span("program.replay") as sp, \
+                torch.cuda.device(self.device):
+            events = None
+            if self.stages:
+                if sp is not None:
+                    if profiling.pending() > 64:
+                        profiling.resolve()
+                    events = self._event_set()
+                    self._point(events)
+                elif self._pointed:
+                    self._point(self._fixed)
+            t0 = time.perf_counter_ns()
             self.graph.replay()
-        counts = launch_counts.read()
-        launch_counts.write({k: counts[k] + n
-                             for k, n in self.launches.items()})
+            if events is not None:
+                profiling.add_device_stages(t0, sp.req, self.stages, events,
+                                            self._free.append)
+            counts = launch_counts.read()
+            launch_counts.write({k: counts[k] + n
+                                 for k, n in self.launches.items()})
+            replays += 1
         return self.outputs

@@ -590,6 +590,57 @@ def test_graphed_serving_equals_eager(cuda, fused_blocks, per_batch):
 
 
 @pytest.mark.cuda
+def test_graphed_serving_times_its_device_stages(cuda):
+    """While tracing is on, each replay of the captured serving program
+    records its stages' device times (decode, encoder, head, fit) as
+    ``device.<stage>`` spans with its batch's number; they add up to the
+    replay's device time; the outputs are those of an untraced replay, and
+    off, no stage is recorded and the graph's nodes hold their own events
+    again."""
+    import time
+
+    from horizonnet_tpu_torch.inference import serve_stream
+    from horizonnet_tpu_torch.utils import profiling
+
+    eng = _small_serving(True)
+    prog = eng.program
+    assert prog.stages == ["decode", "encoder", "head", "fit"]
+    xs = _uint8_batches(6, seed=2)
+    want = [eng(x) for x in xs]
+    t0 = time.perf_counter_ns()
+    with profiling.enable():
+        got = list(serve_stream(eng, iter(xs), depth=3, finish=lambda o: o))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    spans = profiling.spans(t0)
+    for stage in prog.stages:
+        mine = [s for s in spans if s.name == "device." + stage]
+        assert sorted(s.req for s in mine) == list(range(6)), stage
+        assert all(s.end > s.start for s in mine), stage
+    assert sorted(s.req for s in spans
+                  if s.name == "serve.wait_written") == list(range(6))
+    assert prog._pointed
+    # the stages against the replay's device time, on one replay
+    with profiling.enable():
+        t1 = time.perf_counter_ns()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        prog.replay()
+        b.record()
+        torch.cuda.synchronize()
+    total = a.elapsed_time(b)
+    stages = sum((s.end - s.start) / 1e6 for s in profiling.spans(t1)
+                 if s.name.startswith("device."))
+    assert 0.8 * total <= stages <= total
+    t2 = time.perf_counter_ns()
+    assert torch.equal(eng(xs[0]), want[0])
+    torch.cuda.synchronize()
+    assert not prog._pointed
+    assert not [s for s in profiling.spans(t2)
+                if s.name.startswith("device.")]
+
+
+@pytest.mark.cuda
 def test_put_does_not_wait_for_the_device(cuda):
     """With the card busy for ~200 ms, put returns in a few ms (pinned
     staging and a copy stream), and the batch it uploads is served right."""

@@ -1,5 +1,6 @@
-"""The port's trace hooks: ``trace_annotation`` spans, the inference CLI's
-``--profile_dir`` on the CPU device and the trace_serving report.
+"""The port's trace hooks: spans (utils/profiling.py) in a profiler
+session's trace, the inference CLI's ``--profile_dir`` on the CPU device
+and the trace_serving report.
 
 On the CPU the profiler asks for CPU activity only (a CPU-only torch asked
 for CUDA activity stalls), so the traces hold spans and host ops, no
@@ -12,6 +13,7 @@ import glob
 import importlib.util
 import json
 import os
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import pytest
@@ -55,18 +57,21 @@ def test_spans_of_worker_threads_are_recorded(tmp_path):
     """A span opened on a thread the profiler did not start on is in the
     trace too (serve_stream runs the general tail on worker threads)."""
     def tail(i):
-        with profiling.trace_annotation("serve/general_finish"):
+        with profiling.span("serve/general_finish"):
             return i
 
+    t0 = time.perf_counter_ns()
     with profiling.trace_profile("cpu", str(tmp_path)):
-        with profiling.trace_annotation("serve/ingest"):
+        with profiling.span("serve/ingest"):
             pass
         with ThreadPoolExecutor(2) as pool:
             assert list(pool.map(tail, range(3))) == [0, 1, 2]
     spans = _spans(str(tmp_path))
     assert set(spans) == {"serve/ingest", "serve/general_finish"}
     assert not spans["serve/ingest"] & spans["serve/general_finish"]
-    assert profiling.stage_timer is not None
+    # and the recorder kept them, the session being open
+    names = [s.name for s in profiling.spans(t0)]
+    assert sorted(names) == ["serve/general_finish"] * 3 + ["serve/ingest"]
 
 
 @pytest.mark.parametrize("extra,want", [
