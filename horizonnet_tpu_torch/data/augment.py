@@ -14,21 +14,62 @@ Labels (bon, y_cor, corners) are made on the host from the analytically
 transformed corners (data/labels.py). ``sample_aug_params`` draws from
 the host numpy RNG in the JAX package's order, so one seed gives the same
 parameters in both packages.
+
+The upload on a CUDA device (``augment_batch``): the pixels (uint8, or
+the packed dct / dct4 wire) and the five parameter vectors, as one
+float64 array, are staged in pinned host memory (PyTorch's caching
+pinned allocator, which reuses a block only once its copy has left it,
+so concurrent callers never share one) and copied with
+``non_blocking=True`` on a copy stream of the card, where the decode and
+the warp follow. The caller's current stream waits for the warp by an
+event, and the output is marked as in use on it (``record_stream``), so
+the call neither queues behind, nor waits on the host for, the work in
+flight on the caller's stream: a train step there runs while the next
+batch uploads, warps and has its labels made on the host. Where the card
+is the slower side, callers run ahead of it only so far: a call first
+waits on the host until the caller's stream has reached the hand-over of
+the batch ``RUN_AHEAD`` calls back (the span ``augment.runahead_wait``).
+Unbounded, the host would fill the card's launch queue, and every CUDA
+call of every thread (this upload's first copy, the train step's graph
+launch) would block until the card drained it. The host counter
+``augment.stream_uploads`` (ops/launch_counts.py) counts the batches that
+took this path. On the CPU the upload and the warp are plain tensor
+operations on the caller's thread.
 """
 
+import collections
 import itertools
 import math
+import threading
 
 import numpy as np
 import torch
 
 from ..ops import dct as _dct
+from ..ops import launch_counts
 from ..ops.resample import bilinear_wrap_sample
 from ..utils import profiling
 from .labels import cor2xybound, stretched_corners
 
 #: numbers augment_batch's batches, the request ids of their spans
 _batches = itertools.count()
+
+#: batches uploaded and warped on a card's copy stream, in this process
+stream_uploads = 0
+launch_counts.register(__name__, "stream_uploads", host=True)
+
+#: batches a card's callers may hand over before a call waits for the
+#: oldest to be reached on its caller's stream
+RUN_AHEAD = 2
+
+#: each card's state (_Card), made at its first batch; the lock guards it
+#: and ``stream_uploads``
+_cards = {}
+_lock = threading.Lock()
+
+#: the parameter vectors of augment_images, in its order, with their dtypes
+_PARAMS = (("kx", torch.float32), ("ky", torch.float32),
+           ("flip", torch.bool), ("dx", torch.int64), ("p", torch.float32))
 
 
 def stretch_grid(H, W, kx, ky):
@@ -111,6 +152,65 @@ def transform_corners(cor, params, W):
     return cor
 
 
+class _Card:
+    """A card's copy stream (shared by every thread: it only ever waits for
+    its own work) and the hand-over events of its last batches, each
+    recorded on its caller's stream."""
+
+    def __init__(self, device):
+        self.stream = torch.cuda.Stream(device)
+        self.handed = collections.deque()
+
+
+def _card(device):
+    """The _Card of CUDA ``device``."""
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    with _lock:
+        if device not in _cards:
+            _cards[device] = _Card(device)
+        return _cards[device]
+
+
+def _warp_on_copy_stream(imgs, ps, unpack, H, W, device):
+    """The CUDA upload and warp of ``augment_batch``: pinned staging, the
+    copies and the warp on the card's copy stream, handed to the caller's
+    current stream by an event."""
+    global stream_uploads
+    card = _card(device)
+    stream = card.stream
+    with _lock:
+        oldest = (card.handed.popleft() if len(card.handed) >= RUN_AHEAD
+                  else None)
+    if oldest is not None and not oldest.query():
+        with profiling.span("augment.runahead_wait"):
+            oldest.synchronize()
+    caller = torch.cuda.current_stream(stream.device)
+    params = np.array([[p[k] for p in ps] for k, _ in _PARAMS], np.float64)
+    with torch.cuda.stream(stream):
+        with profiling.span("augment.upload", next(_batches)):
+            vecs = torch.from_numpy(params).pin_memory().to(
+                stream.device, non_blocking=True)
+            rgb = torch.from_numpy(imgs).pin_memory().to(
+                stream.device, non_blocking=True)
+        # float64 holds each value exactly: the same float32, bool and
+        # int64 vectors as torch.tensor makes from the python scalars
+        args = [v.to(dtype) for v, (_, dtype) in zip(vecs, _PARAMS)]
+        if unpack is not None:
+            rgb = unpack(rgb, H, W)
+        out = augment_images(rgb, *args)
+        warped = torch.cuda.Event()
+        warped.record(stream)
+    caller.wait_event(warped)
+    out.record_stream(caller)
+    handed = torch.cuda.Event(blocking=True)
+    handed.record(caller)
+    with _lock:
+        card.handed.append(handed)
+        stream_uploads += 1
+    return out
+
+
 def augment_batch(imgs, cors, rng: np.random.Generator, H, W, wire="uint8",
                   *, device, **flags):
     """Whole-batch augmentation: images on ``device``, labels on the host.
@@ -122,12 +222,18 @@ def augment_batch(imgs, cors, rng: np.random.Generator, H, W, wire="uint8",
     params list). The upload of the pixels and of the five parameter
     vectors is traced as the span ``augment.upload`` (utils/profiling.py),
     its request id the batch's number in the process.
+
+    On a CUDA device the call does not wait for the work in flight on the
+    caller's current stream, only, where ``RUN_AHEAD`` batches handed over
+    earlier are still queued there, for the oldest of them (see the
+    module's docstring). The images are ready on the stream that was
+    current at the call, in stream order; a caller that reads them on
+    another stream makes that stream wait for this one first.
     """
     B = imgs.shape[0]
     ps = [sample_aug_params(rng, cors[b], W, **flags) for b in range(B)]
-    vec = lambda k, dtype: torch.tensor(  # noqa: E731
-        [p[k] for p in ps], dtype=dtype, device=device)
     imgs = np.asarray(imgs)
+    unpack = None
     if wire in ("dct", "dct4"):
         if imgs.dtype != np.uint8:
             imgs = np.clip(np.rint(imgs * 255.0), 0, 255).astype(np.uint8)
@@ -137,14 +243,18 @@ def augment_batch(imgs, cors, rng: np.random.Generator, H, W, wire="uint8",
         imgs = pack(imgs)
     elif wire != "uint8":
         raise ValueError(f"unknown training wire {wire!r}")
-    with profiling.span("augment.upload", next(_batches)):
-        args = (vec("kx", torch.float32), vec("ky", torch.float32),
-                vec("flip", torch.bool), vec("dx", torch.int64),
-                vec("p", torch.float32))
-        rgb = torch.from_numpy(imgs).to(device)
-    if wire in ("dct", "dct4"):
-        # decoded on the device, then warped
-        rgb = unpack(rgb, H, W)
-    out = augment_images(rgb, *args)
+    device = torch.device(device)
+    if device.type == "cuda":
+        out = _warp_on_copy_stream(imgs, ps, unpack, H, W, device)
+    else:
+        vec = lambda k, dtype: torch.tensor(  # noqa: E731
+            [p[k] for p in ps], dtype=dtype, device=device)
+        with profiling.span("augment.upload", next(_batches)):
+            args = [vec(k, dtype) for k, dtype in _PARAMS]
+            rgb = torch.from_numpy(imgs).to(device)
+        if unpack is not None:
+            # decoded on the device, then warped
+            rgb = unpack(rgb, H, W)
+        out = augment_images(rgb, *args)
     aug_cors = [transform_corners(cors[b], ps[b], W) for b in range(B)]
     return out, aug_cors, ps

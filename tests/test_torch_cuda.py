@@ -666,6 +666,164 @@ def test_put_does_not_wait_for_the_device(cuda):
         assert torch.equal(g, w)
 
 
+_AUG_FLAGS = dict(flip=True, rotate=True, gamma=True, stretch=True)
+
+
+def _aug_rooms(n, seed):
+    """``n`` synthetic 512x1024 rooms: uint8 images [n, 512, 1024, 3] and
+    their corner lists."""
+    from horizonnet_tpu_torch.data.synth import synth_room
+
+    rng = np.random.default_rng(seed)
+    rooms = [synth_room(rng, 512, 1024) for _ in range(n)]
+    return np.stack([r[0] for r in rooms]), [r[1] for r in rooms]
+
+
+def _plain_augment(imgs, ps, wire, device):
+    """augment_images on a plain ``.to(device)`` upload of the pixels (or
+    of their packed wire, decoded) and on parameter vectors made by
+    torch.tensor from the draws ``ps``."""
+    from horizonnet_tpu_torch.data.augment import augment_images
+    from horizonnet_tpu_torch.ops import dct
+
+    def vec(k, dtype):
+        return torch.tensor([p[k] for p in ps], dtype=dtype, device=device)
+
+    if wire == "uint8":
+        rgb = torch.from_numpy(imgs).to(device)
+    else:
+        rgb = dct.unpack_dct4_to_rgb(
+            torch.from_numpy(dct.pack_dct4(imgs)).to(device), 512, 1024)
+    return augment_images(rgb, vec("kx", torch.float32),
+                          vec("ky", torch.float32), vec("flip", torch.bool),
+                          vec("dx", torch.int64), vec("p", torch.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["uint8", "dct4"])
+def test_augment_batch_does_not_wait_for_the_device(cuda, wire):
+    """With the card busy for ~0.5 s, augment_batch returns while the card
+    is still busy (pinned staging, the copies and the warp on its copy
+    stream), the uint8 wire in under 20 ms (the dct4 wire packs on the
+    host first), and counts the batch. Its output read on the default
+    stream equals the warp of a plain upload bit for bit, also where the
+    next call's warp runs before that read (record_stream keeps the
+    output's memory from it) and where the warp is held back on the copy
+    stream (the default stream waits for it)."""
+    import time
+
+    from horizonnet_tpu_torch.data import augment
+
+    imgs, cors = _aug_rooms(2, seed=0)
+
+    def call(seed):
+        return augment.augment_batch(
+            imgs, cors, np.random.default_rng(seed), 512, 1024, wire=wire,
+            device="cuda", **_AUG_FLAGS)
+
+    call(0)                                 # the stream, pinned blocks
+    torch.cuda.synchronize()
+    n0 = augment.stream_uploads
+    torch.cuda._sleep(1_000_000_000)        # ~0.5 s of the card's clock
+    t0 = time.perf_counter()
+    x, _, ps = call(1)
+    call_s = time.perf_counter() - t0
+    got = x.clone()
+    del x
+    x, _, ps2 = call(2)
+    got2 = x.clone()
+    done = torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    assert not done                         # neither call waited
+    assert call_s < 0.02 or wire != "uint8"
+    assert augment.stream_uploads == n0 + 2
+    assert torch.equal(got, _plain_augment(imgs, ps, wire, cuda))
+    assert torch.equal(got2, _plain_augment(imgs, ps2, wire, cuda))
+    with torch.cuda.stream(augment._card(cuda).stream):
+        torch.cuda._sleep(400_000_000)
+    x, _, ps = call(3)
+    got = x.clone()
+    torch.cuda.synchronize()
+    assert torch.equal(got, _plain_augment(imgs, ps, wire, cuda))
+
+
+@pytest.mark.cuda
+def test_augment_batch_runs_ahead_of_its_caller_only_so_far(cuda):
+    """With the caller's stream held busy, RUN_AHEAD calls return at once;
+    the next waits on the host, in the span augment.runahead_wait, until
+    the caller's stream has reached the oldest batch's hand-over."""
+    import time
+
+    from horizonnet_tpu_torch.data import augment
+    from horizonnet_tpu_torch.utils import profiling
+
+    imgs, cors = _aug_rooms(2, seed=0)
+
+    def call(seed):
+        return augment.augment_batch(
+            imgs, cors, np.random.default_rng(seed), 512, 1024,
+            device="cuda", **_AUG_FLAGS)
+
+    call(0)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1_000_000_000)        # ~0.5 s of the card's clock
+    slept = torch.cuda.Event()
+    slept.record()
+    t0 = time.perf_counter_ns()
+    with profiling.enable():
+        for s in range(augment.RUN_AHEAD):
+            call(1 + s)
+        assert not slept.query()
+        call(9)
+        assert slept.query()
+    torch.cuda.synchronize()
+    waits = [s for s in profiling.spans(t0)
+             if s.name == "augment.runahead_wait"]
+    assert len(waits) == 1 and waits[0].end - waits[0].start > 50_000_000
+
+
+@pytest.mark.cuda
+def test_augment_batch_threads_keep_their_own_batches(cuda):
+    """Two threads augment their own rooms at once, round after round, the
+    first rounds while the default stream is held busy: each output, read
+    on the default stream, equals its single-threaded result bit for bit
+    (no staging buffer, device block or hand-over is shared)."""
+    import threading
+
+    from horizonnet_tpu_torch.data import augment
+
+    rounds = 4
+    rooms = [_aug_rooms(2, seed=10 + t) for t in range(2)]
+
+    def call(t, r):
+        imgs, cors = rooms[t]
+        return augment.augment_batch(
+            imgs, cors, np.random.default_rng([t, r]), 512, 1024,
+            device="cuda", **_AUG_FLAGS)[0]
+
+    want = {(t, r): call(t, r).cpu() for t in range(2) for r in range(rounds)}
+    got = {}
+    barrier = threading.Barrier(2)
+
+    def worker(t):
+        barrier.wait(timeout=60)
+        for r in range(rounds):
+            got[t, r] = call(t, r).clone()
+
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1_000_000_000)        # ~0.5 s of the card's clock
+    threads = [threading.Thread(target=worker, args=(t,)) for t in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+    assert not any(th.is_alive() for th in threads)
+    torch.cuda.synchronize()
+    assert set(got) == set(want)
+    for k, w in want.items():
+        assert torch.equal(got[k].cpu(), w), k
+
+
 @pytest.mark.cuda
 def test_graphed_update_variables_equals_a_fresh_engine(cuda):
     """update_variables copies into the captured parameters: the next

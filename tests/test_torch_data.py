@@ -106,6 +106,38 @@ def test_batched_warp_matches_jax(rooms, wire):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4)
 
 
+@pytest.mark.parametrize("wire", ["uint8", "dct", "dct4"])
+def test_augment_batch_on_the_cpu_takes_no_copy_stream(rooms, wire):
+    """On the CPU augment_batch counts no stream upload, and its output is
+    augment_images on the plain tensors of its draws: the pixels (or their
+    wire, decoded) and the five vectors torch.tensor makes."""
+    from horizonnet_tpu_torch.ops import dct
+
+    imgs = np.stack([r[0] for r in rooms])
+    cors = [r[1] for r in rooms]
+    n0 = augment.stream_uploads
+    x, _, ps = augment.augment_batch(
+        imgs, cors, np.random.default_rng(3), H, W, wire=wire, device="cpu",
+        flip=True, rotate=True, gamma=True, stretch=True)
+    assert augment.stream_uploads == n0
+
+    def vec(k, dtype):
+        return torch.tensor([p[k] for p in ps], dtype=dtype)
+
+    rgb = torch.from_numpy(imgs)
+    if wire == "dct":
+        rgb = dct.unpack_dct_to_rgb(torch.from_numpy(dct.pack_dct(imgs)),
+                                    H, W)
+    elif wire == "dct4":
+        rgb = dct.unpack_dct4_to_rgb(torch.from_numpy(dct.pack_dct4(imgs)),
+                                     H, W)
+    want = augment.augment_images(
+        rgb, vec("kx", torch.float32), vec("ky", torch.float32),
+        vec("flip", torch.bool), vec("dx", torch.int64),
+        vec("p", torch.float32))
+    assert torch.equal(x, want)
+
+
 def test_make_training_batch_matches_jax(rooms, tmp_path):
     """A PNG dataset on disk, full augmentation, the same numpy seed:
     the same labels exactly and the same images to the warp's bar."""
