@@ -1692,8 +1692,9 @@ def phase_train(state):
     from horizonnet_tpu_torch.ops import cuda_lstm_train as clt
     from horizonnet_tpu_torch.train.engine import TrainEngine
     from horizonnet_tpu_torch.train.schedule import warmup_poly_schedule
+    from horizonnet_tpu_torch.models.horizonnet import loss_terms
     from horizonnet_tpu_torch.train.step import (create_train_state,
-                                                 loss_terms, make_optimizer)
+                                                 make_optimizer)
 
     B, H, W, n_steps, reps = TRAIN_B, 512, 1024, 5, 3
     dev = torch.device("cuda")

@@ -21,6 +21,15 @@ card the train step and the validation forward each run as a CUDA graph
 captured once (train/engine.py, inference.py); the epoch's new dropout
 generator carries into the captured step.
 
+``--model lgt`` trains LGT-Net (models/lgt.py: the same encoders, the
+SWG-Transformer and the horizon-depth head) on the same datasets, with
+horizon-depth and ratio labels made from the corners
+(data/labels.py::horizon_depth) and its loss (models/lgt.py::
+loss_terms); ``--backbone`` picks its encoder and ``--no_rnn``,
+``--lstm_impl`` do not apply. Its validation is the eval-mode loss
+(``validate_lgt``; serving LGT-Net is not ported, so there are no IoUs),
+and the best checkpoint is the one of the least validation loss.
+
 ``--lstm_impl``: ``pallas_train`` runs the CUDA pair K2/K3
 (csrc/bilstm_train.cu) in training and K1 in the validation forward (the
 JAX model's eval mode takes the serving kernel), ``scan`` autograd
@@ -73,6 +82,10 @@ def build_argparser():
                         help="training checkpoint (or its ckpt dir) to "
                              "resume from: restores params, BN stats, "
                              "optimizer state, epoch and best score")
+    parser.add_argument("--model", default="horizonnet",
+                        choices=["horizonnet", "lgt"],
+                        help="HorizonNet, or LGT-Net (SWG-Transformer "
+                             "head) on the same encoder")
     parser.add_argument("--backbone", default="resnet50")
     parser.add_argument("--no_rnn", action="store_true")
     parser.add_argument("--train_root_dir",
@@ -213,6 +226,34 @@ def validate(engine, dataset, batch_size, indices=None):
     return {k: v / len(indices) for k, v in valid_loss.items()}
 
 
+def validate_lgt(model, dataset, batch_size, indices=None):
+    """LGT-Net's validation pass: the eval-mode forward of ``model`` on
+    the host-labelled samples (``dataset`` yields (img, y_bon, y_cor,
+    gt_cor), return_cor=True) in batches of ``batch_size``, and the means
+    of its loss terms (models/lgt.py::loss_terms) over the dataset
+    (or its samples ``indices``): {"total", "depth", "ratio", "normal",
+    "grad"}. The model is left in eval mode."""
+    import torch
+
+    from ..data.dataset import lgt_labels
+
+    device = next(model.parameters()).device
+    model.eval()
+    indices = list(range(len(dataset)) if indices is None else indices)
+    sums = {}
+    for j0 in range(0, len(indices), max(1, batch_size)):
+        samples = [dataset[j] for j in indices[j0:j0 + max(1, batch_size)]]
+        H, W = samples[0][0].shape[:2]
+        x = torch.from_numpy(np.stack([s[0] for s in samples])).to(device)
+        targets = [torch.from_numpy(t).to(device)
+                   for t in lgt_labels([s[3] for s in samples], H, W)]
+        with torch.no_grad():
+            losses = model.losses(model(x.permute(0, 3, 1, 2)), targets)
+        for k, v in losses.items():
+            sums[k] = sums.get(k, 0.0) + float(v) * len(samples)
+    return {k: v / len(indices) for k, v in sums.items()}
+
+
 def main(argv=None):
     args = build_argparser().parse_args(argv)
     import torch.distributed as dist
@@ -279,9 +320,18 @@ def _train(args, device, mesh, rank, world):
                     param_dtype=torch.float32,
                     bn_momentum=args.bn_momentum or 0.1,
                     seam_pool=args.seam_pool)
+    lgt = args.model == "lgt"
+    if lgt:
+        build_kw = dict(build_kw, arch="lgt", W=W)
+        del build_kw["lstm_impl"]
     if args.pth:
         say("Finetune model is given. Ignore --backbone and --no_rnn")
-        model, _ = load_trained_model(args.pth, **build_kw)
+        model, _ = load_trained_model(
+            args.pth, **{k: v for k, v in build_kw.items()
+                         if k not in ("arch", "W")})
+        if model.ARCH != args.model:
+            raise ValueError(f"--pth holds a {model.ARCH} model; --model "
+                             f"is {args.model}")
     else:
         model = build_model(args.backbone, not args.no_rnn, seed=args.seed,
                             **build_kw)
@@ -323,8 +373,9 @@ def _train(args, device, mesh, rank, world):
             rp = os.path.join(rp, "checkpoint.ckpt")
         state, header = load_checkpoint(rp, state)
         kw = header.get("kwargs", {})
-        if (kw.get("backbone", backbone), kw.get("use_rnn", use_rnn)) \
-                != (backbone, use_rnn):
+        if (kw.get("backbone", backbone), kw.get("use_rnn", use_rnn),
+                kw.get("arch", "horizonnet")) \
+                != (backbone, use_rnn, args.model):
             raise ValueError(f"--resume checkpoint was trained with {kw}, "
                              "flags disagree")
         start_epoch = int(header["epoch"]) + 1
@@ -365,29 +416,37 @@ def _train(args, device, mesh, rank, world):
             idx = [i for d, i in rows[lo:hi] if d is ds]
             if idx:
                 parts.append(make_training_batch(ds, idx, bat_rng,
-                                                 device=device))
+                                                 device=device,
+                                                 arch=args.model))
         if len(parts) == 1:
             return parts[0]
-        (x, y_bon, y_cor), (xa, ba, ca) = parts
-        return (torch.cat([x, xa], 0), np.concatenate([y_bon, ba], 0),
-                np.concatenate([y_cor, ca], 0))
+        (x, *targets), (xa, *targets_a) = parts
+        return (torch.cat([x, xa], 0), *[
+            np.concatenate([t, ta], 0) for t, ta in zip(targets, targets_a)])
 
     def validate_all(valid_engine):
         """``validate`` over this rank's share of the validation set (every
         world-th sample), the means over all of it on every rank."""
         idx = range(rank, len(dataset_valid), world)
-        loss = validate(valid_engine, dataset_valid, args.batch_size_valid,
-                        idx)
+        if lgt:
+            loss = validate_lgt(valid_engine, dataset_valid,
+                                args.batch_size_valid, idx)
+            keys = model.METRICS
+        else:
+            loss = validate(valid_engine, dataset_valid,
+                            args.batch_size_valid, idx)
+            keys = VALID_METRICS
         if world == 1:
             return loss
         sums = torch.tensor([loss.get(k, 0.0) * len(idx)
-                             for k in VALID_METRICS], dtype=torch.float64,
+                             for k in keys], dtype=torch.float64,
                             device=device)
         dist.all_reduce(sums)
         return {k: float(v) / len(dataset_valid)
-                for k, v in zip(VALID_METRICS, sums.tolist())}
+                for k, v in zip(keys, sums.tolist())}
 
-    best_valid_score = resume_best
+    best_valid_score = (resume_best if args.resume or not lgt
+                        else -float("inf"))
     cur_iter = (start_epoch - 1) * steps_per_epoch
     valid_engine = None  # built lazily; weights swapped in each epoch
     try:
@@ -408,14 +467,13 @@ def _train(args, device, mesh, rank, world):
             for it in trange(steps_per_epoch, desc=f"Train ep{epoch}",
                              leave=False):
                 if prefetch:
-                    x, y_bon, y_cor = nxt.result()
+                    x, *targets = nxt.result()
                     if it + 1 < steps_per_epoch:
                         nxt = prefetch.submit(build_batch, order, aug_order,
                                               it + 1, bat_rng)
                 else:
-                    x, y_bon, y_cor = build_batch(order, aug_order, it,
-                                                  bat_rng)
-                metrics = engine.step(x, y_bon, y_cor, gen)
+                    x, *targets = build_batch(order, aug_order, it, bat_rng)
+                metrics = engine.step(x, *targets, gen)
                 cur_iter += 1
                 if tb is not None:
                     for k, v in metrics.items():
@@ -426,7 +484,15 @@ def _train(args, device, mesh, rank, world):
             if dataset_valid is not None or epoch % args.save_every == 0:
                 host = engine.host_state()   # collective under a mesh
             if dataset_valid is not None:
-                if valid_engine is None:
+                if lgt:
+                    # the live model, or a whole copy of a sharded one
+                    if engine.sharded:
+                        valid_engine = valid_engine or build_model(
+                            backbone, use_rnn, **build_kw)
+                        valid_engine.load_state_dict(host["state_dict"])
+                    else:
+                        valid_engine = model
+                elif valid_engine is None:
                     # the whole model: a model sharded over 'model' serves
                     # from a copy
                     valid_model = (build_model(backbone, use_rnn, **build_kw)
@@ -441,7 +507,8 @@ def _train(args, device, mesh, rank, world):
                 if tb is not None:
                     for k, v in valid_loss.items():
                         tb.add_scalar(f"valid/{k}", v, epoch)
-                now_score = valid_loss["3DIoU"]
+                now_score = (-valid_loss["total"] if lgt
+                             else valid_loss["3DIoU"])
                 say(f"Ep{epoch:3d} {now_score:.4f} vs. Best "
                     f"{best_valid_score:.4f}", flush=True)
                 is_best = now_score > best_valid_score

@@ -8,7 +8,8 @@ Pillow, imported on that path only.
 
 ``make_training_batch`` samples the augmentation parameters on the host,
 warps the images in one batched device pass (data/augment.py) and makes
-the bon / corner-heatmap labels on the host from the transformed corners.
+the bon / corner-heatmap labels (or LGT-Net's horizon depths and ratio)
+on the host from the transformed corners.
 """
 
 import os
@@ -18,7 +19,7 @@ import numpy as np
 from ..geometry.lines import cor_2_1d
 from ..utils.image import read_png
 from .augment import augment_batch
-from .labels import corner_heatmap, find_occlusion
+from .labels import corner_heatmap, find_occlusion, horizon_depth
 
 
 def _read_image(path):
@@ -93,10 +94,20 @@ class PanoCorBonDataset:
         return out
 
 
+def lgt_labels(cors, H, W):
+    """LGT-Net's targets of corner lists: (y_depth [B, W/4], y_ratio
+    [B, 1]) float32 (labels.py::horizon_depth)."""
+    labels = [horizon_depth(c, H, W, W // 4) for c in cors]
+    return (np.stack([d for d, _ in labels]),
+            np.array([[r] for _, r in labels], np.float32))
+
+
 def make_training_batch(dataset: PanoCorBonDataset, indices,
-                        rng: np.random.Generator, *, device):
+                        rng: np.random.Generator, *, device,
+                        arch="horizonnet"):
     """One augmented training batch: (x [B, H, W, 3] float32 on
-    ``device``, bon [B, 2, W], y_cor [B, 1, W] numpy)."""
+    ``device``, bon [B, 2, W], y_cor [B, 1, W] numpy), or with
+    ``arch="lgt"`` LGT-Net's (x, y_depth [B, W/4], y_ratio [B, 1])."""
     imgs, cors, occs = [], [], []
     for i in indices:
         img, cor, occ, _ = dataset.load_raw(i)
@@ -110,6 +121,8 @@ def make_training_batch(dataset: PanoCorBonDataset, indices,
         imgs, cors, rng, H, W, wire=dataset.wire, device=device,
         flip=dataset.flip, rotate=dataset.rotate, gamma=dataset.gamma,
         stretch=dataset.stretch, max_stretch=dataset.max_stretch)
+    if arch == "lgt":
+        return (x, *lgt_labels(aug_cors, H, W))
 
     bons = np.stack([cor_2_1d(c, H, W) for c in aug_cors]).astype(np.float32)
     y_cors = np.stack([

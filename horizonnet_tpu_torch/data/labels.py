@@ -71,3 +71,39 @@ def corner_heatmap(corx, w=1024, p_base=0.96):
         d = np.minimum(d, w - d)
         nearest = d.min(0) if len(corx) else np.full(w, np.inf)
         return (p_base ** nearest).astype(np.float32)
+
+
+#: the camera's height above the floor, in metres (the evals' camera)
+CAMERA_HEIGHT = 1.6
+
+
+def horizon_depth(cor, h=512, w=1024, n=256, camera_height=CAMERA_HEIGHT):
+    """LGT-Net's labels from a corner list (ceiling/floor pairs, pixel
+    coords): (depth [n] float32, ratio float).
+
+    Each floor corner k, at longitude u_k and down-positive latitude v_k,
+    lies at distance r_k = camera_height / tan(v_k) on the floor plane, at
+    p_k = r_k (cos u_k, sin u_k). The depth of column i is the distance
+    along its centre longitude t_i = ((i + 0.5) / n - 0.5) 2 pi to the
+    nearest crossing of the polygon of the p_k in ring order. The ratio
+    is the mean over corners of the ceiling's height above the camera,
+    r_k tan(-v^c_k) at the ceiling corner's latitude, over
+    camera_height. Float64 inside. Traced as the span ``labels.depth``."""
+    with profiling.span("labels.depth"):
+        cor = np.asarray(cor, np.float64)
+        u = coorx2u(cor[1::2, 0], w)
+        r = camera_height / np.tan(coory2v(cor[1::2, 1], h))
+        ratio = float(np.mean(r * np.tan(-coory2v(cor[0::2, 1], h)))
+                      / camera_height)
+        a = np.stack([r * np.cos(u), r * np.sin(u)], -1)     # [K, 2]
+        d = np.roll(a, -1, 0) - a                            # edges a -> b
+        t = (np.arange(n) + 0.5) / n * (2 * np.pi) - np.pi
+        e = np.stack([np.cos(t), np.sin(t)], -1)             # [n, 2]
+        cross = lambda p, q: p[..., 0] * q[..., 1] - p[..., 1] * q[..., 0]
+        den = cross(e[:, None], d[None])                     # [n, K]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            dist = cross(a, d)[None] / den
+            s = cross(a[None], e[:, None]) / den
+        hit = (np.abs(den) > 1e-12) & (s >= 0) & (s <= 1) & (dist > 0)
+        depth = np.where(hit, dist, np.inf).min(1)
+        return depth.astype(np.float32), ratio

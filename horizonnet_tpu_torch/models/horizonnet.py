@@ -47,6 +47,16 @@ RNN_HIDDEN = 512
 DROPOUT = 0.5        # between LSTM layers and in the head (model.py:221-233)
 
 
+def loss_terms(bon_pred, cor_pred, y_bon, y_cor):
+    """L1 boundary loss + BCE-with-logits corner loss (train.py:53-56),
+    the latter as max(x, 0) - x y + log1p(exp(-|x|))."""
+    bon_loss = (bon_pred - y_bon).abs().mean()
+    x = cor_pred
+    cor_loss = (x.clamp(min=0) - x * y_cor
+                + torch.log1p(torch.exp(-x.abs()))).mean()
+    return bon_loss, cor_loss
+
+
 def head_bias(step_cols):
     """Prior of the head's bias: cor logit -1, ceiling boundary -0.478,
     floor boundary 0.425 (reference model.py:229-231)."""
@@ -160,6 +170,12 @@ class HorizonNet(nn.Module):
     models/quant.py::quantize_state_dict); the height stage and the head
     stay float."""
 
+    ARCH = "horizonnet"
+    TARGETS = ("y_bon", "y_cor")
+    METRICS = ("total", "bon", "cor")
+    #: whether the train step marks its device stages (it does not)
+    TRAIN_STAGES = False
+
     def __init__(self, backbone="resnet50", use_rnn=True, *, device,
                  dtype=torch.float32, lstm_impl="kernel", seed=0,
                  param_dtype=None, bn_momentum=0.1, fused_blocks="",
@@ -219,6 +235,17 @@ class HorizonNet(nn.Module):
                     b.zero_()
         last = self.linear if self.use_rnn else self.linear[3]
         last.bias.copy_(head_bias(STEP_COLS))
+
+    def target_shapes(self, B, W):
+        """{target: shape} of a batch of B panos W wide."""
+        return {"y_bon": (B, 2, W), "y_cor": (B, 1, W)}
+
+    def losses(self, outputs, targets):
+        """{"total", "bon", "cor"} of ``outputs`` (bon, cor) against
+        ``targets`` (y_bon, y_cor): ``loss_terms`` and their sum."""
+        bon_loss, cor_loss = loss_terms(*outputs, *targets)
+        return {"total": bon_loss + cor_loss, "bon": bon_loss,
+                "cor": cor_loss}
 
     def forward(self, x, generator=None, batch_shard=None):
         """x: [B, 3, H, W] float in [0, 1] -> (bon [B, 2, W], cor [B, 1, W]).

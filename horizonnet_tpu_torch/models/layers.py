@@ -36,7 +36,8 @@ class Linear(nn.Linear):
     """nn.Linear computing in its input's dtype."""
 
     def forward(self, x):
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
 
 
 class BatchNorm2d(nn.BatchNorm2d):

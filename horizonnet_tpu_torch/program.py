@@ -237,8 +237,10 @@ class CapturedProgram:
     raises: there is no eager fallback.
 
     Device stages: where ``fn`` calls ``profiling.mark`` at its stage
-    boundaries (the serving program: decode, encoder, head, fit), the
-    graph holds an event-record node at each. While tracing is on
+    boundaries (the serving program: decode, encoder, head, fit; LGT-Net's
+    train step: encoder_fwd, swg_fwd, head_loss, swg_bwd, encoder_bwd,
+    optim, two of them marked from the backward pass), the graph holds an
+    event-record node at each. While tracing is on
     (utils/profiling.py), each replay points those nodes at a set of
     events of its own, taken from a pool, before its launch
     (``cuGraphExecEventRecordNodeSetEvent``), so a later replay in flight

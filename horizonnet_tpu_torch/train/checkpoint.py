@@ -15,6 +15,12 @@ optimizer that train/step.py::make_optimizer mirrors, so the JAX
 package's ``load_trained_model`` and ``load_checkpoint`` read both; the
 port's ``load_checkpoint`` restores a training state from either package's
 file.
+
+LGT-Net (models/lgt.py), which the JAX package lacks, is written in the
+same container with ``kwargs`` {"arch": "lgt", "backbone", "W"} and a
+payload of its own: the port's state_dict as a flat map of arrays
+(``state_dict``) and the optimizer's moments the same way
+(``opt_state``: {"count", "mu", "nu"} or {"count", "trace"}).
 """
 
 import json
@@ -259,6 +265,13 @@ def load_trained_model(path, *, device, dtype=None, lstm_impl="kernel",
     if is_ckpt:
         header, payload = read_checkpoint(path)
         kw = header["kwargs"]
+        if kw.get("arch") == "lgt":
+            model = build_model(kw["backbone"], device=device, arch="lgt",
+                                W=kw["W"], dtype=dtype or torch.float32,
+                                **build_kw)
+            sd = _flat_state_dict(payload["state_dict"])
+            model.load_state_dict(sd)
+            return model, sd
         sd = torch_convert.variables_to_state_dict(
             {"params": _upcast(payload["params"]),
              "batch_stats": _upcast(payload.get("batch_stats", {}))})
@@ -274,14 +287,41 @@ def load_trained_model(path, *, device, dtype=None, lstm_impl="kernel",
     return model, sd
 
 
+def _flat(tensors):
+    """{name: tensor} -> {name: numpy array} (floats in float32)."""
+    return {k: (v.detach().float() if v.is_floating_point() else v.detach())
+            .cpu().numpy() for k, v in tensors.items()}
+
+
+def _flat_state_dict(payload):
+    """A flat payload map -> {name: CPU tensor}, float16 upcast."""
+    return {k: torch.from_numpy(np.array(v)) for k, v in
+            _upcast(payload).items()}
+
+
+def _lgt_width(state_dict):
+    """LGT-Net's input width (4 x its ratio head's columns), None for a
+    HorizonNet state_dict."""
+    w = state_dict.get("ratio_out.weight")
+    return None if w is None else 4 * int(w.shape[1])
+
+
+def _model_kwargs(state_dict, backbone, use_rnn):
+    width = _lgt_width(state_dict)
+    if width is None:
+        return {"backbone": backbone, "use_rnn": use_rnn}
+    return {"arch": "lgt", "backbone": backbone, "W": width}
+
+
 def save_model(path, state_dict, backbone, use_rnn, args=None):
     """Inference checkpoint of a state_dict (horizonnet_tpu/train/
-    checkpoint.py:55-62)."""
+    checkpoint.py:55-62); LGT-Net's in its own payload."""
     from ..models.torch_convert import state_dict_to_variables
 
-    write_checkpoint(path, {"kind": "model", "kwargs": {
-        "backbone": backbone, "use_rnn": use_rnn}, "args": args or {}},
-        state_dict_to_variables(state_dict))
+    payload = ({"state_dict": _flat(state_dict)} if _lgt_width(state_dict)
+               else state_dict_to_variables(state_dict))
+    write_checkpoint(path, {"kind": "model", "kwargs": _model_kwargs(
+        state_dict, backbone, use_rnn), "args": args or {}}, payload)
 
 
 def _moments_tree(moments, state_dict):
@@ -316,17 +356,24 @@ def save_checkpoint(ckpt_dir, host, backbone, use_rnn, epoch,
     """Training checkpoint ``ckpt_dir/checkpoint.ckpt`` and, if
     ``is_best``, its copy ``best_model_{epoch}.ckpt``
     (horizonnet_tpu/train/checkpoint.py:90-105). ``host`` is
-    TrainEngine.host_state() or TrainState.host()."""
+    TrainEngine.host_state() or TrainState.host(); LGT-Net's state goes
+    in its own payload."""
     from ..models.torch_convert import state_dict_to_variables
 
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, "checkpoint.ckpt")
     sd = host["state_dict"]
-    payload = state_dict_to_variables(sd)
-    payload["opt_state"] = _opt_state_tree(host, sd)
-    payload["step"] = np.asarray(host["step"], np.int32)
-    write_checkpoint(path, {"kind": "train", "kwargs": {
-        "backbone": backbone, "use_rnn": use_rnn}, "epoch": epoch,
+    count = np.asarray(host["step"], np.int32)
+    if _lgt_width(sd):
+        payload = {"state_dict": _flat(sd), "opt_state": {
+            "count": count, **{k: _flat(m) for k, m in
+                               host["moments"].items()}}}
+    else:
+        payload = state_dict_to_variables(sd)
+        payload["opt_state"] = _opt_state_tree(host, sd)
+    payload["step"] = count
+    write_checkpoint(path, {"kind": "train", "kwargs": _model_kwargs(
+        sd, backbone, use_rnn), "epoch": epoch,
         "best_valid_score": float(best_valid_score), "args": args or {}},
         payload)
     if is_best:
@@ -342,6 +389,15 @@ def load_checkpoint(path, state):
     from ..models.torch_convert import variables_to_state_dict
 
     header, payload = read_checkpoint(path)
+    if header["kwargs"].get("arch") == "lgt":
+        state.model.load_state_dict(_flat_state_dict(payload["state_dict"]))
+        with torch.no_grad():
+            for k, moments in state.opt.moments.items():
+                saved = _flat_state_dict(payload["opt_state"][k])
+                for n, t in moments.items():
+                    t.copy_(saved[n])
+        state.opt.count = int(payload["step"])
+        return state, header
     stats = _upcast(payload["batch_stats"])
     state.model.load_state_dict(variables_to_state_dict(
         {"params": _upcast(payload["params"]), "batch_stats": stats}))

@@ -7,11 +7,13 @@ without a mesh, the engine captures the whole step (forward with dropout,
 losses, backward through K3, the optimizer update and the batch-norm
 statistics) once as a CUDA graph (program.py) and replays it each step;
 the optimizer's count and learning rate live on the device
-(train/step.py). Host batches go up through pinned staging on a copy
-stream, device tensors (the augmentation's output) by a device-to-device
-copy. ``step`` queues the step and returns its metrics as device tensors
-without waiting, so the host builds the next batch while the device
-trains. On the CPU and under a mesh the same step runs eagerly.
+(train/step.py). The model names its targets and their shapes
+(``TARGETS``, ``target_shapes``): HorizonNet's boundary and corner maps,
+LGT-Net's horizon depths and ratio (models/lgt.py). Host batches go up
+through pinned staging on a copy stream, device tensors (the
+augmentation's output) by a device-to-device copy. ``step`` queues the
+step and returns its metrics as device tensors without waiting, so the
+host builds the next batch while the device trains. On the CPU and under a mesh the same step runs eagerly.
 
 With a ``mesh`` (parallel/mesh.py) the engine is this rank's part of a
 multi-process step, as the JAX engine's sharded step is: the encoder's
@@ -33,8 +35,6 @@ from ..models.layers import BatchNorm2d
 from ..parallel.sharding import gather_state, shard_state
 from ..program import CapturedProgram, UploadRing, engine_device
 from .step import train_step
-
-METRICS = ("total", "bon", "cor")
 
 
 class TrainEngine:
@@ -76,8 +76,10 @@ class TrainEngine:
             self.net = DistributedDataParallel(
                 model, process_group=mesh.data_group)
         self.batch_size = B = batch_size
-        self._shapes = {"x": (B, H, W, 3), "y_bon": (B, 2, W),
-                        "y_cor": (B, 1, W)}
+        #: the model's targets, in the order ``step`` takes them
+        self.targets = model.TARGETS
+        self.metrics = model.METRICS
+        self._shapes = {"x": (B, H, W, 3), **model.target_shapes(B, W)}
         # two slots: the step in flight reads one while the next uploads
         self._rings = {k: UploadRing(v, torch.float32, self.device, 2)
                        for k, v in self._shapes.items()}
@@ -89,8 +91,8 @@ class TrainEngine:
             m = self.model
             self.program = CapturedProgram(
                 lambda: train_step(self.state, self._static["x"],
-                                   self._static["y_bon"],
-                                   self._static["y_cor"], self._gen),
+                                   *[self._static[k] for k in self.targets],
+                                   self._gen),
                 self.device,
                 keep=[*m.parameters(), *m.buffers(),
                       *state.opt.state_tensors()],
@@ -114,19 +116,26 @@ class TrainEngine:
                       else t)
         return out
 
-    def step(self, x, y_bon, y_cor, generator):
-        """One training step; returns {"total", "bon", "cor"} as device
-        tensors (under a captured step, copies that the next step leaves
-        alone). ``x`` [B, H, W, 3] in [0, 1], a host array or a device
-        tensor (e.g. the output of data/augment.py); ``generator`` a
-        torch.Generator on the engine's device for the dropout masks, which
-        the step advances. Under a mesh B is this rank's rows, every rank
-        seeds ``generator`` alike, and the losses are the global batch's
-        means."""
+    def step(self, x, *args):
+        """One training step, ``step(x, *targets, generator)``; returns
+        the model's METRICS ({"total", "bon", "cor"} for HorizonNet) as
+        device tensors (under a captured step, copies that the next step
+        leaves alone). ``x`` [B, H, W, 3] in [0, 1], a host array or a
+        device tensor (e.g. the output of data/augment.py); the targets in
+        the model's TARGETS order (y_bon, y_cor for HorizonNet; y_depth,
+        y_ratio for LGT-Net), host arrays or device tensors;
+        ``generator`` a torch.Generator on the engine's device for the
+        dropout masks, which the step advances. Under a mesh B is this
+        rank's rows, every rank seeds ``generator`` alike, and the losses
+        are the global batch's means."""
+        *targets, generator = args
         if not isinstance(generator, torch.Generator):
             raise ValueError("the train step needs a torch.Generator for "
                              "its dropout masks")
-        batch = self._batch({"x": x, "y_bon": y_bon, "y_cor": y_cor})
+        if len(targets) != len(self.targets):
+            raise ValueError(f"the model's targets are {self.targets}; "
+                             f"{len(targets)} given")
+        batch = self._batch({"x": x, **dict(zip(self.targets, targets))})
         ups = {k: v for k, v in batch.items() if not torch.is_tensor(v)}
         t = {k: self._rings[k].take(v) if k in ups else v
              for k, v in batch.items()}
@@ -135,8 +144,9 @@ class TrainEngine:
                 for k, v in t.items():
                     self._static[k].copy_(v)
             else:
-                m = train_step(self.state, t["x"], t["y_bon"], t["y_cor"],
-                               generator, self.net, self.batch_shard)
+                m = train_step(self.state, t["x"],
+                               *[t[k] for k in self.targets], generator,
+                               net=self.net, batch_shard=self.batch_shard)
         finally:
             for k, up in ups.items():
                 self._rings[k].release(up)
@@ -144,10 +154,10 @@ class TrainEngine:
             return self._replay(generator)
         if self.mesh is None or self.mesh.n_data == 1:
             return m
-        losses = torch.stack([m[k] for k in METRICS])
+        losses = torch.stack([m[k] for k in self.metrics])
         dist.all_reduce(losses, group=self.mesh.data_group)
         losses /= self.mesh.n_data
-        return dict(zip(METRICS, losses.unbind()))
+        return dict(zip(self.metrics, losses.unbind()))
 
     def _replay(self, generator):
         """The captured step, drawing its dropout masks from
@@ -158,7 +168,7 @@ class TrainEngine:
         self._gen.set_state(generator.get_state())
         out = self.program.replay()
         generator.set_state(self._gen.get_state())
-        return {k: out[k].clone() for k in METRICS}
+        return {k: out[k].clone() for k in self.metrics}
 
     def full(self, tensors):
         """{name: this rank's tensor} -> the whole tensors (the channel

@@ -1,9 +1,11 @@
 """Train step: loss, gradients, optimizer, batch-norm statistics.
 
 Counterpart of horizonnet_tpu/train/step.py (reference train.py:44-58 and
-216-223): loss = L1(bon) + BCE-with-logits(cor); Adam or SGD with the
-warmup-poly schedule; --freeze_earlier_blocks; batch-norm running
-statistics updated by the train-mode forward. Mixed precision is the
+216-223): the model's loss (``model.losses``: HorizonNet's L1(bon) +
+BCE-with-logits(cor), models/horizonnet.py::loss_terms; LGT-Net's in
+models/lgt.py); Adam or SGD with the warmup-poly schedule;
+--freeze_earlier_blocks; batch-norm running statistics updated by the
+train-mode forward. Mixed precision is the
 model's: bf16 compute with f32 parameters (models/horizonnet.py), f32
 loss, no loss scaling (bf16 has f32's exponent range).
 
@@ -30,16 +32,7 @@ from typing import Callable, Optional
 
 import torch
 
-
-def loss_terms(bon_pred, cor_pred, y_bon, y_cor):
-    """L1 boundary loss + BCE-with-logits corner loss (train.py:53-56),
-    the latter as max(x, 0) - x y + log1p(exp(-|x|))."""
-    bon_loss = (bon_pred - y_bon).abs().mean()
-    x = cor_pred
-    cor_loss = (x.clamp(min=0) - x * y_cor
-                + torch.log1p(torch.exp(-x.abs()))).mean()
-    return bon_loss, cor_loss
-
+from ..utils import profiling
 
 @dataclass(frozen=True)
 class OptimizerSpec:
@@ -203,38 +196,44 @@ def _nchw(x):
     return x.permute(0, 3, 1, 2)
 
 
-def train_step(state, x, y_bon, y_cor, generator, net=None,
-               batch_shard=None):
-    """One optimization step. x [B, H, W, 3] float in [0, 1]; y_bon
-    [B, 2, W]; y_cor [B, 1, W]; ``generator`` draws the dropout masks.
-    Returns {"total", "bon", "cor"} as detached tensors (no sync).
+def train_step(state, x, *args, net=None, batch_shard=None):
+    """One optimization step: ``train_step(state, x, *targets,
+    generator)``. x [B, H, W, 3] float in [0, 1]; the targets in the
+    model's ``TARGETS`` order (HorizonNet: y_bon [B, 2, W], y_cor
+    [B, 1, W]; LGT-Net: y_depth [B, W/4], y_ratio [B, 1]); ``generator``
+    draws the dropout masks. Returns {"total", and each loss term} as
+    detached tensors (no sync).
 
     Under a mesh (train/engine.py) ``net`` is the DistributedDataParallel
     wrapper of ``state.model``, the batch is this rank's rows
     ``batch_shard`` of the global batch, and the losses are this rank's
-    means."""
+    means. A model with ``TRAIN_STAGES`` (LGT-Net) has the step mark the
+    device stages ``encoder_bwd`` after the backward pass and ``optim``
+    after the update; the model marks the others."""
+    *targets, generator = args
     model = state.model
     model.train()
     for p in model.parameters():
         p.grad = None
-    bon, cor = (model if net is None else net)(_nchw(x), generator,
-                                               batch_shard)
-    bon_loss, cor_loss = loss_terms(bon, cor, y_bon, y_cor)
-    total = bon_loss + cor_loss
-    total.backward()
+    outputs = (model if net is None else net)(_nchw(x), generator,
+                                              batch_shard)
+    losses = model.losses(outputs, targets)
+    losses["total"].backward()
+    if model.TRAIN_STAGES:
+        profiling.mark("encoder_bwd")
     state.opt.step()
-    return {"total": total.detach(), "bon": bon_loss.detach(),
-            "cor": cor_loss.detach()}
+    if model.TRAIN_STAGES:
+        profiling.mark("optim")
+    return {k: v.detach() for k, v in losses.items()}
 
 
 @torch.no_grad()
-def eval_losses(state, x, y_bon, y_cor):
-    """Losses of the eval-mode forward (running statistics, no dropout)."""
+def eval_losses(state, x, *targets):
+    """Losses of the eval-mode forward (running statistics, no dropout):
+    ``eval_losses(state, x, *targets)`` -> {"total", and each term}."""
     model = state.model
     model.eval()
-    bon, cor = model(_nchw(x))
-    bon_loss, cor_loss = loss_terms(bon, cor, y_bon, y_cor)
-    return {"total": bon_loss + cor_loss, "bon": bon_loss, "cor": cor_loss}
+    return model.losses(model(_nchw(x)), targets)
 
 
 def encoder_freeze_mask(names, n_frozen_blocks):

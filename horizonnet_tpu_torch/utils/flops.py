@@ -78,7 +78,7 @@ def serving_flops(model, B, H, W, input_format="float", postproc=None,
 def train_step_flops(model, B, H, W):
     """FLOPs of one train step on a batch of B for ``model``: forward in
     train mode with dropout, the losses and the backward."""
-    from ..train.step import loss_terms
+    from ..models.horizonnet import loss_terms
 
     twin = _counting_twin(model, param_dtype=torch.float32).train()
     x = torch.zeros(1, 3, H, W, device="meta")

@@ -22,8 +22,10 @@ program's capture (``program.capture``).
 
 Device stages: a captured program (program.py::CapturedProgram) that
 calls ``mark(name)`` at its stage boundaries gets an event-record node at
-each; while tracing is on, each replay's nodes record into events of its
-own, and the time between two marks becomes a device span
+each (``mark_backward(x, name)`` marks where the backward pass reaches
+``x``, from autograd's own thread); while tracing is on, each replay's
+nodes record into events of its own, and the time between two marks
+becomes a device span
 ``device.<name>`` (its start is the replay's host start, its length the
 device's), resolved without blocking once the replay has finished
 (``resolve()``, called by serve_stream's tail workers and by ``spans``).
@@ -33,6 +35,7 @@ import collections
 import threading
 import time
 
+import torch.autograd as _autograd
 import torch.autograd.profiler as _autograd_profiler
 
 #: records kept; the oldest are dropped beyond
@@ -178,8 +181,13 @@ def report(t0=None, t1=None):
 def mark(name):
     """The end of device stage ``name`` (``None``: the start of the first)
     inside a program that a CapturedProgram is capturing; a no-op on any
-    other call."""
+    other call. A mark made by the backward pass (``mark_backward``) runs
+    on autograd's device thread, not on the capturing one: it reaches the
+    capture's list through ``_capturing``, when that thread's current
+    stream is the capture's."""
     marks = getattr(_local, "marks", None)
+    if marks is None:
+        marks = _capturing[0]
     if marks is not None:
         import torch
 
@@ -190,9 +198,35 @@ def mark(name):
 
 
 def collect_marks(marks):
-    """Let ``mark`` append (name, event) to ``marks`` on this thread
-    (``None``: stop)."""
+    """Let ``mark`` append (name, event) to ``marks`` on this thread, and
+    from the threads that run its backward passes (``None``: stop)."""
     _local.marks = marks
+    _capturing[0] = marks
+
+
+#: the mark list of the capture in progress, for autograd's threads
+_capturing = [None]
+
+
+class _MarkBackward(_autograd.Function):
+    @staticmethod
+    def forward(ctx, x, name):
+        ctx.name = name
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        mark(ctx.name)
+        return grad, None
+
+
+def mark_backward(x, name):
+    """``x`` as it is, with ``mark(name)`` made where the backward pass
+    has computed the gradient of ``x``: the end of the backward stage that
+    leads there. ``x`` that needs no gradient is returned alone."""
+    if not x.requires_grad:
+        return x
+    return _MarkBackward.apply(x, name)
 
 
 def add_device_stages(t0, req, names, events, release):

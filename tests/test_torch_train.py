@@ -18,13 +18,14 @@ from horizonnet_tpu.train.schedule import warmup_poly_schedule as jax_sched
 from horizonnet_tpu.train.step import loss_terms as jax_loss_terms
 from horizonnet_tpu.train.step import make_optimizer as jax_make_optimizer
 from horizonnet_tpu_torch.models import build_model
+from horizonnet_tpu_torch.models.horizonnet import loss_terms
 from horizonnet_tpu_torch.models.torch_convert import (
     state_dict_to_variables, variables_to_state_dict)
 from horizonnet_tpu_torch.ops import dropout as port_dropout
 from horizonnet_tpu_torch.train.schedule import warmup_poly_schedule
 from horizonnet_tpu_torch.train.step import (
-    create_train_state, encoder_freeze_mask, eval_losses, loss_terms,
-    make_optimizer, train_step)
+    create_train_state, encoder_freeze_mask, eval_losses, make_optimizer,
+    train_step)
 
 
 def jax_variables(backbone, use_rnn, seed):
