@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phases parity                   # parity_eval
     python3 chip_smoke.py --phases kernel flagship bench    # the benches
     python3 chip_smoke.py --phases kernel parallel          # the mesh
+    python3 chip_smoke.py --phases pad                      # K5
 
 Phases; any failed check makes the script exit non-zero:
   kernel    build K1 (csrc/bilstm_fwd.cu), the training pair K2/K3
@@ -53,8 +54,8 @@ Phases; any failed check makes the script exit non-zero:
             the captured program (InferenceEngine's default on the card)
             and the eager one (graph=False): the captured output equal to
             the eager one bit for bit on the three wire batches; K1
-            launched twice a batch by both (a replay counts its captured
-            launches); the host's ms in put() and in run() while batches
+            launched twice and K5's pad 33 times a batch by both (a
+            replay counts its captured launches); the host's ms in put() and in run() while batches
             run on the card, beside one batch's device ms and what an
             upload from pageable memory waits there (put must take under
             a quarter of a batch); serving and device-resident panos/s of
@@ -111,7 +112,9 @@ Phases; any failed check makes the script exit non-zero:
             eager step's own spread), and advance the generators alike;
             then ms a step of both in turns (eager, graphed, graphed,
             eager) x 3 of 5 steps. Checks: every loss finite, K2 and K3
-            launched twice a step, the loss after the steps below the
+            launched twice a step, K5's pad 33 and its fold 32 times a
+            step (the stem's input takes no gradient), the loss after the
+            steps below the
             first step's. Prints train panos/s, peak memory of each
             engine, per-stage times of the eager step and, for each, the
             profiler's device-busy share and top kernels.
@@ -258,6 +261,13 @@ Phases; any failed check makes the script exit non-zero:
             rank, the same on both, at least PAR_FLAGSHIP_ROWS rows within
             2 px of the one-process engine's (bf16 ties); K1 launched on
             every rank.
+  pad       K5 (csrc/wrap_pad.cu), the encoder's wrap pad and its fold
+            (the train and flagship phases count its launches): at each
+            wrap pad's input of the main path (bf16,
+            channels_last; B=24 train, B=64 serve) the pad and the fold
+            equal their twins bit for bit, each timed beside its bound
+            (bytes once at 3.35 TB/s), the twins and torch.cat with its
+            autograd (the pad it replaced), summed over one step's pads.
 
 The general, densenet and quant phases serve through captured engines
 too (the default on the card), and every launch count includes replays.
@@ -273,11 +283,12 @@ parity phase's card runs and the bench, each in a fresh process that
 reports its count, and the parallel phase's serving ranks; K2, K3: the
 resnet50 and densenet121 train runs, train_throughput's run and the
 parallel phase's torchrun run and ranks;
-K4: the fused run; each counted from 0 just before its run, and logged
-by path), its error against the twin, its time beside the twin's, its
-bound and the library call's time.
+K4: the fused run; K5: the pad phase's step and forward; each counted
+from 0 just before its run, and logged by path), its error against the
+twin, its time beside the twin's, its bound and the library call's time.
 K4's times and bound are summed over the 12 calls of one resnet50
-forward (2, 3, 5 and 2 at the four stage shapes).
+forward (2, 3, 5 and 2 at the four stage shapes); K5's over one train
+step's 33 pads and 32 folds at B=24.
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no
 result.
@@ -297,7 +308,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, "tests", "fixtures", "golden")
 PHASES = ("kernel", "golden", "flagship", "fused", "general", "cli", "host",
           "train", "train_cli", "dynamics", "densenet", "quant",
-          "preprocess", "eval", "parity", "bench", "parallel")
+          "preprocess", "eval", "parity", "bench", "parallel", "pad")
 # H100 SXM peaks: f32 outside the tensor cores and HBM3 (the bf16 peak is
 # horizonnet_tpu_torch/utils/flops.py's PEAK_BF16_FLOPS)
 PEAK_F32_FLOPS = 67e12
@@ -895,6 +906,110 @@ def phase_kernel_fused(state, g):
         else "bytes", **tot)
 
 
+def _pad_inputs(B):
+    """{(shape, pad): count} of the wrap pads one resnet50 HorizonNet
+    forward at 512x1024 takes at batch B (the stem, the bottlenecks' 3x3
+    convs and the height stage's convs), read at batch 1 on the card."""
+    import collections
+
+    import torch
+    from horizonnet_tpu_torch.models import build_model, layers
+    from horizonnet_tpu_torch.ops import pad as wp
+
+    seen = collections.Counter()
+
+    def record(x, pad, dim=-1):
+        seen[(B, *x.shape[1:]), pad] += 1
+        return wp.wrap_pad_width(x, pad, dim)
+
+    model = build_model("resnet50", True, device="cuda",
+                        dtype=torch.bfloat16, seed=0)
+    layers.wrap_pad_width = record
+    try:
+        with torch.no_grad():
+            model(torch.zeros(1, 3, 512, 1024, device="cuda"))
+    finally:
+        layers.wrap_pad_width = wp.wrap_pad_width
+    return dict(seen)
+
+
+def _bits(t):
+    import torch
+
+    t = t.contiguous()
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def phase_pad(state):
+    """K5 (csrc/wrap_pad.cu): at every wrap pad's input of the main path
+    (bf16, channels_last; B = 24 train, B = 64 serve) the pad and the fold
+    equal their twins bit for bit and are timed beside their bound (bytes
+    once at 3.35 TB/s), the twins, and the pad this replaced: torch.cat of
+    two narrowed views forward, its autograd backward (zero-filled narrow
+    gradients and the adds into the input's gradient). The train and
+    flagship phases count its launches on the main path."""
+    import torch
+    from horizonnet_tpu_torch.ops import pad as wp
+
+    card, dev = state["card"], torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(5)
+    totals = {}
+    for what, B in (("train", 24), ("serve", 64)):
+        tot = dict.fromkeys(("ms", "bound_ms", "plain_ms", "cat_ms"), 0.0)
+        for ((_, C, H, W), p), n in sorted(_pad_inputs(B).items()):
+            x = torch.randn(B, C, H, W, generator=g).to(
+                dev, torch.bfloat16).contiguous(
+                    memory_format=torch.channels_last)
+            dpad = torch.randn(B, C, H, W + 2 * p, generator=g).to(
+                dev, torch.bfloat16).contiguous(
+                    memory_format=torch.channels_last)
+            grad = what == "train" and C != 3      # the stem's input: none
+            check(torch.equal(_bits(wp.wrap_pad_cuda(x, p)),
+                              _bits(wp.wrap_pad_plain(x, p))),
+                  f"K5 pad differs from its twin at {(B, C, H, W, p)}")
+            nbytes = (2 * W + 2 * p) * B * C * H * 2
+            ms = cuda_ms(lambda: wp.wrap_pad_cuda(x, p))
+            mp = cuda_ms(lambda: wp.wrap_pad_plain(x, p))
+            xg = x.detach().requires_grad_(grad)
+
+            def parent():
+                y = torch.cat([xg.narrow(3, W - p, p), xg,
+                               xg.narrow(3, 0, p)], 3)
+                if grad:
+                    y.backward(dpad)
+                    xg.grad = None
+            mc = cuda_ms(parent)
+            if grad:
+                check(torch.equal(_bits(wp.wrap_fold_cuda(dpad, p)),
+                                  _bits(wp.wrap_fold_plain(dpad, p))),
+                      f"K5 fold differs from its twin at {(B, C, H, W, p)}")
+                ms += cuda_ms(lambda: wp.wrap_fold_cuda(dpad, p))
+                mp += cuda_ms(lambda: wp.wrap_fold_plain(dpad, p))
+                nbytes *= 2
+            bms = nbytes / PEAK_BYTES * 1e3
+            log(f"K5 {what} [B={B},C={C},H={H},W={W},p={p}] x{n}"
+                f"{' pad + fold' if grad else ' pad'}: kernel {ms:.4f} ms, "
+                f"bound {bms:.4f} ms ({nbytes / 1e6:.1f} MB), at "
+                f"{100 * bms / ms:.1f} %; twin {mp:.4f} ms; torch.cat"
+                f"{' + autograd' if grad else ''} {mc:.4f} ms")
+            for k, v in (("ms", ms), ("bound_ms", bms), ("plain_ms", mp),
+                         ("cat_ms", mc)):
+                tot[k] += n * v
+        log(f"K5 over one {what} step's pads (B={B}, bf16): kernel "
+            f"{tot['ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms (at "
+            f"{100 * tot['bound_ms'] / tot['ms']:.1f} %), twins "
+            f"{tot['plain_ms']:.3f} ms, torch.cat"
+            f"{' + autograd' if what == 'train' else ''} "
+            f"{tot['cat_ms']:.3f} ms [{card}]")
+        totals[what] = tot
+    note(state, k5_train=totals["train"], k5_serve=totals["serve"])
+    state["kernels"]["wrap_pad"].update(
+        max_abs_err=0.0, bound_by="bytes", ms=totals["train"]["ms"],
+        plain_ms=totals["train"]["plain_ms"],
+        bound_ms=totals["train"]["bound_ms"],
+        library_ms=totals["train"]["cat_ms"])
+
+
 def _golden_inputs():
     import numpy as np
     from horizonnet_tpu_torch.utils.image import read_png
@@ -1037,6 +1152,7 @@ def phase_flagship(state):
     import numpy as np
     import torch
     from horizonnet_tpu_torch.ops import cuda_lstm
+    from horizonnet_tpu_torch.ops import pad as wp
     from horizonnet_tpu_torch.postproc import unpack_cuboid_outputs
 
     B, n_batches, reps = FLAGSHIP_B, 12, 2
@@ -1080,16 +1196,20 @@ def phase_flagship(state):
     check(all(same), f"graphed flagship output differs from the eager "
           f"program's on batches {[i for i, v in enumerate(same) if not v]}")
 
-    # K1's launches a batch, a replay's counted as the eager calls are
-    k1 = {}
+    # K1's and K5's launches a batch, a replay's counted as the eager
+    # calls are
+    k1, k5 = {}, {}
     for name, eng in engs.items():
-        cuda_lstm.launches = 0
+        cuda_lstm.launches = wp.fwd_launches = 0
         eng(wire[0])
         torch.cuda.synchronize()
-        k1[name] = cuda_lstm.launches
+        k1[name], k5[name] = cuda_lstm.launches, wp.fwd_launches
     check(k1["graphed"] == k1["eager"] == 2,
           f"K1 launches a batch: graphed {k1['graphed']}, eager "
           f"{k1['eager']}, not 2 each")
+    check(k5["graphed"] == k5["eager"] == 33,
+          f"K5 pads a batch: graphed {k5['graphed']}, eager {k5['eager']}, "
+          "not 33 each")
 
     # the host's time in put() and run() while batches run on the card,
     # and what an upload from pageable memory (the port's put before the
@@ -1115,23 +1235,29 @@ def phase_flagship(state):
 
     feed = [wire[i % len(wire)] for i in range(n_batches)]
     xs = _resident(wire)
-    cuda_lstm.launches = 0
+    cuda_lstm.launches = wp.fwd_launches = wp.bwd_launches = 0
     serving, device = _in_turns(engs, "eager", "graphed", feed, xs, finish,
                                 reps)
-    launches = cuda_lstm.launches
+    launches, pads = cuda_lstm.launches, wp.fwd_launches
     forwards = 8 * reps * n_batches
     check(launches == 2 * forwards, f"K1 launched {launches} times in "
           f"{forwards} forwards of 2 recurrences")
+    check(pads == 33 * forwards and wp.bwd_launches == 0,
+          f"K5 padded {pads} and folded {wp.bwd_launches} times in "
+          f"{forwards} forwards of 33 pads")
     _launched(state, "bilstm_fwd", "flagship", launches)
+    _launched(state, "wrap_pad", "flagship", pads)
     med, dmed = _medians(serving), _medians(device)
     log(f"flagship resnet50_rnn bf16 B={B} dct4 cuboid, eager and graphed "
         f"in turns (eager, graphed, graphed, eager) x {reps}, runs of "
         f"{n_batches} batches at depth 3: {_turns_line(serving, device)}; "
         f"peak memory eager {peak['eager']:.2f}, graphed "
-        f"{peak['graphed']:.2f} GiB; K1 launches {launches} [{card}]")
+        f"{peak['graphed']:.2f} GiB; K1 launches {launches}, K5 pads {pads} "
+        f"[{card}]")
     state["flagship_device"] = dmed["graphed"]
     note(state, serving=med, device=dmed, peak_gib=peak,
          same_bits=sum(same), k1_a_batch=k1["graphed"],
+         k5_a_batch=k5["graphed"],
          put_ms={k: v[0] for k, v in calls.items()},
          run_ms={k: v[1] for k, v in calls.items()},
          batch_ms=batch_ms, pageable_put_ms=pageable_ms)
@@ -1690,6 +1816,7 @@ def phase_train(state):
     from horizonnet_tpu_torch.data.augment import augment_images
     from horizonnet_tpu_torch.models import build_model
     from horizonnet_tpu_torch.ops import cuda_lstm_train as clt
+    from horizonnet_tpu_torch.ops import pad as wp
     from horizonnet_tpu_torch.train.engine import TrainEngine
     from horizonnet_tpu_torch.train.schedule import warmup_poly_schedule
     from horizonnet_tpu_torch.models.horizonnet import loss_terms
@@ -1765,6 +1892,7 @@ def phase_train(state):
 
     # ms a step, in turns; the captured engine is the main path
     clt.fwd_launches = clt.bwd_launches = 0
+    wp.fwd_launches = wp.bwd_launches = 0
     losses, step_ms = [], {k: [] for k in engs}
     gen = {k: torch.Generator(device=dev).manual_seed(2) for k in engs}
     for name in ("eager", "graphed", "graphed", "eager") * reps:
@@ -1776,7 +1904,10 @@ def phase_train(state):
         torch.cuda.synchronize()
         step_ms[name].append((time.perf_counter() - t0) / n_steps * 1e3)
     k2, k3 = clt.fwd_launches, clt.bwd_launches
+    k5 = (wp.fwd_launches, wp.bwd_launches)
     steps = 4 * reps * n_steps
+    check(k5 == (33 * steps, 32 * steps), f"K5 padded and folded {k5} "
+          f"times in {steps} steps of 33 pads and 32 folds")
     losses = [m["total"].item() for m in first3["graphed"]] + [
         v.item() for v in losses]
     check(all(np.isfinite(losses)), f"train losses not finite: {losses}")
@@ -1787,6 +1918,7 @@ def phase_train(state):
           f"{first} -> {last}")
     _launched(state, "bilstm_train_fwd", "train", k2)
     _launched(state, "bilstm_bwd", "train", k3)
+    _launched(state, "wrap_pad", "train", sum(k5))
     med = {k: statistics.median(v) for k, v in step_ms.items()}
     log(f"train resnet50_rnn bf16 (f32 params) B={B} {H}x{W} kernel_train, "
         f"in turns (eager, graphed, graphed, eager) x {reps} of {n_steps} "
@@ -1795,7 +1927,8 @@ def phase_train(state):
         f"{[round(v, 2) for v in step_ms['graphed']]}); "
         f"{B * 1e3 / med['graphed']:.2f} panos/s graphed; peak memory eager "
         f"{peak['eager']:.2f}, graphed {peak['graphed']:.2f} GiB; K2 "
-        f"launches {k2}, K3 launches {k3}; loss {first:.4f} -> {last:.4f} "
+        f"launches {k2}, K3 launches {k3}, K5 {k5[0]} pads and {k5[1]} "
+        f"folds; loss {first:.4f} -> {last:.4f} "
         f"over {len(losses)} graphed steps on one batch [{card}]")
     note(state, step_ms=med, panos_s=B * 1e3 / med["graphed"],
          peak_gib=peak, bits_equal=n_same, tensors=len(spread["graphed"]),
@@ -3732,7 +3865,7 @@ def main(argv=None):
     from concurrent.futures import ThreadPoolExecutor
 
     from horizonnet_tpu_torch.ops import (cuda_lstm, cuda_lstm_train,
-                                          fused_block)
+                                          fused_block, pad)
 
     def record(name, source, replaces):
         return {"name": name, "route": "cuda",
@@ -3750,18 +3883,20 @@ def main(argv=None):
         "bilstm_bwd": record("bilstm_bwd", "bilstm_train.cu",
                              "pallas_lstm.py:87"),
         "fused_bottleneck": record("fused_bottleneck", "fused_bottleneck.cu",
-                                   "pallas_block.py:58")}
+                                   "pallas_block.py:58"),
+        "wrap_pad": record("wrap_pad", "wrap_pad.cu",
+                           "pad.py:wrap_pad_width (jnp.concatenate)")}
     state = {"card": card_line(), "launches": {}, "summary": {},
              "kernels": kernels}
     log(state["card"])
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         for f in [pool.submit(m.build)
-                  for m in (cuda_lstm, cuda_lstm_train, fused_block)]:
+                  for m in (cuda_lstm, cuda_lstm_train, fused_block, pad)]:
             f.result()
-    log(f"K1, K2/K3 and K4 builds (nvcc in parallel, or the cached "
+    log(f"K1, K2/K3, K4 and K5 builds (nvcc in parallel, or the cached "
         f"libraries): {time.perf_counter() - t0:.1f} s")
 
     phases = {"kernel": phase_kernel, "golden": phase_golden,
@@ -3772,7 +3907,7 @@ def main(argv=None):
               "densenet": phase_densenet, "quant": phase_quant,
               "preprocess": phase_preprocess, "eval": phase_eval,
               "parity": phase_parity, "bench": phase_bench,
-              "parallel": phase_parallel}
+              "parallel": phase_parallel, "pad": phase_pad}
     for name in args.phases:
         t0 = time.perf_counter()
         state["phase"] = name

@@ -427,6 +427,131 @@ def _yaw_tilt(yaw, tilt):
                                              [0, np.sin(b), np.cos(b)]])
 
 
+def _bits(t):
+    t = t.detach().contiguous()
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+# K5 against its twins, bit for bit: the stem's 3-channel image (2-byte
+# units in bf16), an unaligned column (C = 5), an odd width, the narrowest
+# widths it takes (W = 2p; W = p, where a column takes three terms: the
+# deepest maps of a 512x32 input), and main-path shapes at B = 24: the
+# stem, stage 1 and 4's 3x3 inputs and the height stage's widest.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("channels_last", [False, True])
+@pytest.mark.parametrize("B,C,H,W,p", [
+    (2, 3, 16, 64, 3), (2, 5, 4, 33, 1), (3, 64, 8, 40, 1),
+    (2, 64, 4, 1, 1), (2, 64, 4, 2, 1), (2, 3, 8, 3, 3), (2, 5, 4, 4, 3),
+    (24, 3, 512, 1024, 3), (24, 64, 128, 256, 1), (24, 512, 16, 32, 1),
+    (24, 256, 128, 256, 1)])
+def test_wrap_pad_kernel_matches_twin(cuda, dtype, channels_last, B, C, H,
+                                      W, p):
+    from horizonnet_tpu_torch.ops import pad as wp
+
+    g = torch.Generator().manual_seed(W + C)
+    tdt = getattr(torch, dtype)
+    x = torch.randn(B, C, H, W, generator=g).to(cuda, tdt)
+    dpad = torch.randn(B, C, H, W + 2 * p, generator=g)
+    dpad[dpad.abs() < 0.1] = -0.0
+    dpad = dpad.to(cuda, tdt)
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    x, dpad = (t.contiguous(memory_format=fmt) for t in (x, dpad))
+    n0 = (wp.fwd_launches, wp.bwd_launches)
+    got, dx = wp.wrap_pad_cuda(x, p), wp.wrap_fold_cuda(dpad, p)
+    torch.cuda.synchronize()
+    assert (wp.fwd_launches, wp.bwd_launches) == (n0[0] + 1, n0[1] + 1)
+    assert got.is_contiguous(memory_format=fmt)
+    assert dx.is_contiguous(memory_format=fmt)
+    assert torch.equal(_bits(got), _bits(wp.wrap_pad_plain(x, p)))
+    assert torch.equal(_bits(dx), _bits(wp.wrap_fold_plain(dpad, p)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wrap_pad_function_on_card_equals_cat_autograd(cuda, dtype):
+    """The Function launches K5 both ways and equals torch.cat with its
+    autograd bit for bit, in NCHW and in channels_last."""
+    from horizonnet_tpu_torch.ops import pad as wp
+
+    g = torch.Generator().manual_seed(1)
+    tdt = getattr(torch, dtype)
+    base = torch.randn(2, 128, 16, 64, generator=g).to(cuda, tdt)
+    for fmt in (torch.contiguous_format, torch.channels_last):
+        a0, b0 = base.clone().requires_grad_(), base.clone().requires_grad_()
+        a, b = (t.contiguous(memory_format=fmt) for t in (a0, b0))
+        n0 = (wp.fwd_launches, wp.bwd_launches)
+        got = wp.wrap_pad_width(a, 1)
+        want = torch.cat([b.narrow(3, 63, 1), b, b.narrow(3, 0, 1)], 3)
+        dy = torch.randn(got.shape, generator=g).to(cuda, tdt)
+        got.backward(dy)
+        want.backward(dy)
+        torch.cuda.synchronize()
+        assert (wp.fwd_launches, wp.bwd_launches) == (n0[0] + 1, n0[1] + 1)
+        assert torch.equal(_bits(got), _bits(want))
+        assert torch.equal(_bits(a0.grad), _bits(b0.grad))
+
+
+@pytest.mark.cuda
+def test_wrap_pad_encoder_grads_on_card_equal_the_cat_path(cuda,
+                                                           monkeypatch):
+    """A train-mode resnet50 encoder and height stage at 64x128 (bf16 on
+    float32 parameters, channels_last): the loss and every gradient equal
+    bit for bit with K5 as with torch.cat's autograd."""
+    from horizonnet_tpu_torch.models import layers
+    from horizonnet_tpu_torch.models.height import GlobalHeightStage
+    from horizonnet_tpu_torch.models.resnet import (ResNetEncoder,
+                                                    resnet_feature_channels)
+    from horizonnet_tpu_torch.ops import pad as wp
+
+    def run(pad_fn):
+        monkeypatch.setattr(layers, "wrap_pad_width", pad_fn)
+        torch.manual_seed(0)
+        enc = ResNetEncoder("resnet50").train().to(cuda)
+        stage = GlobalHeightStage(resnet_feature_channels("resnet50")).train(
+        ).to(cuda)
+        x = torch.from_numpy(np.random.default_rng(3).uniform(
+            0, 1, (2, 3, 64, 128)).astype(np.float32)).to(
+                cuda, torch.bfloat16).contiguous(
+                    memory_format=torch.channels_last)
+        loss = (stage(enc(x), 32).float() ** 2).mean()
+        loss.backward()
+        return [loss] + [p.grad for m in (enc, stage) for p in m.parameters()]
+
+    n0 = wp.bwd_launches
+    got = run(wp.wrap_pad_width)
+    assert wp.bwd_launches - n0 == 32
+    want = run(lambda x, pad, dim=-1: torch.cat(
+        [x.narrow(3, x.shape[3] - pad, pad), x, x.narrow(3, 0, pad)], 3))
+    for a, b in zip(got, want):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.cuda
+def test_wrap_pad_kernel_rejects_what_it_cannot_run(cuda):
+    from horizonnet_tpu_torch.ops import pad as wp
+
+    x = torch.zeros(1, 4, 3, 8, device=cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        wp.wrap_pad_width(x.half(), 1)
+    with pytest.raises(ValueError, match="0 < pad <= W"):
+        wp.wrap_pad_width(x, 9)
+    with pytest.raises(ValueError, match="0 < pad <= W"):
+        wp.wrap_fold_cuda(torch.zeros(1, 4, 3, 10, device=cuda), 4)
+    with pytest.raises(ValueError, match="neither dense"):
+        wp.wrap_pad_cuda(x[:, ::2], 1)
+
+
+@pytest.mark.cuda
+def test_dryrun_multichip_on_the_card(cuda):
+    """The 512x32 dry run on two ranks sharing the card: (1, 2) and (2, 1)
+    meshes train a step and serve. Its deepest maps are 2 and 1 wide under
+    a pad of 1, which K5 pads and folds."""
+    from horizonnet_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    dryrun_multichip(2, timeout=600.0)
+
+
 @pytest.mark.cuda
 def test_preprocess_device_warps_on_card_match_host(cuda):
     """The preprocess's device backend on the card (the 26 view cuts and
@@ -894,6 +1019,30 @@ def test_graphed_train_steps_equal_eager(cuda):
     for a, b in zip(g.state.opt.state_tensors(), e.state.opt.state_tensors()):
         assert torch.equal(a, b)
     assert g.state.step == e.state.step == 3
+
+
+@pytest.mark.cuda
+def test_graphed_train_step_replays_k5(cuda):
+    """A resnet18 train step at 512x256 pads 33 inputs (the stem, 16 3x3
+    convs, the height stage's 16) and folds 32 gradients (the stem's input
+    takes none), captured or eager; the captured and eager steps stay equal
+    bit for bit."""
+    from horizonnet_tpu_torch.ops import pad as wp
+
+    rng = np.random.default_rng(1)
+    batch = (rng.uniform(0, 1, (2, 512, 256, 3)).astype(np.float32),
+             rng.normal(0, 0.5, (2, 2, 256)).astype(np.float32),
+             rng.uniform(0, 1, (2, 1, 256)).astype(np.float32))
+    losses = {}
+    for graph in (False, True):
+        eng = _small_trainer(graph)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        n0 = (wp.fwd_launches, wp.bwd_launches)
+        losses[graph] = [eng.step(*batch, gen)["total"] for _ in range(2)]
+        torch.cuda.synchronize()
+        assert (wp.fwd_launches - n0[0], wp.bwd_launches - n0[1]) == (66, 64)
+    for a, b in zip(losses[True], losses[False]):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

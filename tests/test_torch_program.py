@@ -283,15 +283,16 @@ def test_check_capture_refuses_a_graph_that_missed_the_program(
 
 
 def test_launch_counts_register_every_kernel_wrapper():
-    """K1-K4's wrappers register their counts (ops/launch_counts.py), which
+    """K1-K5's wrappers register their counts (ops/launch_counts.py), which
     a replay moves; read and write go through the modules' globals."""
     from horizonnet_tpu_torch.ops import (cuda_lstm, cuda_lstm_train,
-                                          fused_block, launch_counts)
+                                          fused_block, launch_counts, pad)
 
     want = {(cuda_lstm.__name__, "launches"),
             (cuda_lstm_train.__name__, "fwd_launches"),
             (cuda_lstm_train.__name__, "bwd_launches"),
-            (fused_block.__name__, "launches")}
+            (fused_block.__name__, "launches"),
+            (pad.__name__, "fwd_launches"), (pad.__name__, "bwd_launches")}
     assert want <= set(launch_counts.COUNTS)
     before = launch_counts.read()
     try:
